@@ -1,0 +1,110 @@
+"""Greedy non-maximum suppression over batches of score-sorted problems
+(counterpart of demonet_tpu/ops/nms.py and ops/nms_pallas.py).
+
+`nms_keep_batch` is the wrapper of the hand-written CUDA kernel
+`csrc/nms.cu`, with the contract of the TPU kernel
+demonet_tpu/ops/nms_pallas.py::nms_keep_batch. On a CUDA tensor it
+launches the kernel; on a CPU tensor it runs `nms_keep_batch_plain`, the
+plain PyTorch version of the same function, which the tests hold bit for
+bit against the JAX reference `jax.vmap(nms_mask)`.
+
+The IoU is computed term by term as the reference writes it:
+inter = max(min(x2) - max(x1), 0) * max(min(y2) - max(y1), 0),
+union = area_j + area_i - inter, iou = inter / max(union, 1e-9), and a
+candidate is suppressed on a strict `iou > iou_threshold`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from demonet_tpu_torch.ops import _build
+
+
+def nms_keep_batch_plain(boxes: torch.Tensor, scores: torch.Tensor,
+                         iou_threshold: float,
+                         score_threshold: float) -> torch.Tensor:
+    """Keep mask (P, K) for P problems of K candidates, each sorted by
+    descending score; entries with score <= score_threshold are padding.
+
+    A scan over the candidates, vectorized across the P problems: step i
+    lets every still-kept candidate i suppress the later ones it overlaps.
+    """
+    p, k, _ = boxes.shape
+    valid = scores > score_threshold
+    x1, y1, x2, y2 = boxes.unbind(-1)
+    area = (x2 - x1) * (y2 - y1)
+    suppressed = ~valid
+    later = torch.arange(k, device=boxes.device)
+    # the loop ends after the last valid candidate of any problem
+    bound = int((valid * (later + 1)).amax()) if p * k else 0
+    for i in range(bound):
+        kept_i = ~suppressed[:, i:i + 1]
+        iw = (torch.minimum(x2, x2[:, i:i + 1])
+              - torch.maximum(x1, x1[:, i:i + 1])).clamp(min=0.0)
+        ih = (torch.minimum(y2, y2[:, i:i + 1])
+              - torch.maximum(y1, y1[:, i:i + 1])).clamp(min=0.0)
+        inter = iw * ih
+        iou = inter / (area + area[:, i:i + 1] - inter).clamp(min=1e-9)
+        suppressed |= kept_i & (iou > iou_threshold) & (later > i)
+    return ~suppressed
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel():
+    fn = _build.load("nms").nms_keep_batch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def nms_keep_batch(boxes: torch.Tensor, scores: torch.Tensor,
+                   iou_threshold: float,
+                   score_threshold: float) -> torch.Tensor:
+    """Greedy NMS keep mask over a batch of independent problems.
+
+    Args:
+      boxes: (P, K, 4) float32 xyxy, score-sorted descending per problem.
+      scores: (P, K) float32; entries <= score_threshold are padding.
+
+    Returns (P, K) bool. A CUDA tensor goes to the kernel `csrc/nms.cu`
+    (and counts one in `nms_keep_batch.launches`); a CPU tensor to
+    `nms_keep_batch_plain`.
+    """
+    if boxes.ndim != 3 or boxes.shape[-1] != 4 \
+            or scores.shape != boxes.shape[:2]:
+        raise ValueError(f"nms_keep_batch: boxes {tuple(boxes.shape)} and "
+                         f"scores {tuple(scores.shape)} are not (P, K, 4) "
+                         "and (P, K)")
+    if boxes.dtype != torch.float32 or scores.dtype != torch.float32:
+        raise TypeError("nms_keep_batch takes float32 boxes and scores, got "
+                        f"{boxes.dtype} and {scores.dtype}")
+    if boxes.device != scores.device:
+        raise ValueError(f"nms_keep_batch: boxes on {boxes.device}, scores "
+                         f"on {scores.device}")
+    if boxes.device.type == "cpu":
+        return nms_keep_batch_plain(boxes, scores, iou_threshold,
+                                    score_threshold)
+    if boxes.device.type != "cuda":
+        raise ValueError(f"nms_keep_batch: no kernel for {boxes.device}")
+    if not (boxes.is_contiguous() and scores.is_contiguous()):
+        raise ValueError("nms_keep_batch: boxes and scores must be contiguous")
+    if boxes.data_ptr() % 16:
+        raise ValueError("nms_keep_batch: boxes must be 16-byte aligned")
+    p, k, _ = boxes.shape
+    keep = torch.empty((p, k), dtype=torch.bool, device=boxes.device)
+    with torch.cuda.device(boxes.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = _kernel()(boxes.data_ptr(), scores.data_ptr(), keep.data_ptr(),
+                         p, k, iou_threshold, score_threshold, stream)
+    _build.check(code, "nms_keep_batch")
+    nms_keep_batch.launches += 1
+    return keep
+
+
+nms_keep_batch.launches = 0

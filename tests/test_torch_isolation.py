@@ -1,0 +1,83 @@
+"""The PyTorch port stands alone: demonet_tpu_torch and chip_smoke.py import
+nothing of JAX, flax or the JAX package, import with no GPU, nvcc or
+triton, and never fall back to the CPU unasked."""
+
+import os
+import re
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from demonet_tpu_torch.models.builders import (
+    resolve_device,
+    ssdlite320_mobilenet_v3_large,
+)
+
+_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+# `import jax`, `from jax...`, any flax, or the JAX package by name; the
+# port's own name `demonet_tpu_torch` does not match
+_FORBIDDEN = re.compile(
+    r"^\s*(import|from)\s+(jax\b|flax\b|demonet_tpu(?!_torch)\b)"
+    r"|\bflax\b|\bdemonet_tpu\.", re.MULTILINE)
+
+
+def _port_sources():
+    root = os.path.join(_REPO, "demonet_tpu_torch")
+    for d, _, files in os.walk(root):
+        for f in files:
+            if f.endswith((".py", ".cu", ".cuh")):
+                yield os.path.join(d, f)
+    yield os.path.join(_REPO, "chip_smoke.py")
+
+
+def test_import_pulls_in_no_jax():
+    code = ("import demonet_tpu_torch, demonet_tpu_torch.models.builders, "
+            "demonet_tpu_torch.engine.evaluate, "
+            "demonet_tpu_torch.utils.weights; import sys; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'flax', 'demonet_tpu', 'triton')]; "
+            "assert not bad, bad")
+    subprocess.run([sys.executable, "-c", code], cwd=_REPO, check=True,
+                   timeout=120)
+
+
+def test_sources_name_no_jax():
+    sources = list(_port_sources())
+    assert len(sources) > 10
+    for path in sources:
+        with open(path) as f:
+            text = f.read()
+        hits = [m.group(0) for m in _FORBIDDEN.finditer(text)]
+        assert not hits, f"{os.path.relpath(path, _REPO)}: {hits}"
+
+
+def test_scan_pattern_catches_what_it_should():
+    for bad in ("import jax\n", "from jax import numpy\n",
+                "import flax.linen\n", "from demonet_tpu.ops import nms\n",
+                "x = demonet_tpu.models\n"):
+        assert _FORBIDDEN.search(bad), bad
+    for fine in ("import demonet_tpu_torch\n",
+                 "from demonet_tpu_torch.ops import nms\n",
+                 "# counterpart of demonet_tpu/ops/nms.py\n"):
+        assert not _FORBIDDEN.search(fine), fine
+
+
+def test_no_gpu_and_no_device_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_device(None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ssdlite320_mobilenet_v3_large(num_classes=5, size=(64, 64))
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_chip_smoke_refuses_without_cuda():
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=_REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
