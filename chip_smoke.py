@@ -1,26 +1,40 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's main paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
 The main path is flagship inference: ssdlite320_mobilenet_v3_large
-(91 classes, 320x320, fp32) predict with the reference postprocess,
-through `make_predict_step`, with the trained weights of
-bench_assets/ssdlite320_shapes_trained.npz loaded by `load_jax_variables`.
-The script prints one JSON line per phase:
+(91 classes, 320x320, fp32) predict through `make_predict_step`, with the
+trained weights of bench_assets/ssdlite320_shapes_trained.npz loaded by
+`load_jax_variables`, in each of its serving modes: the reference
+postprocess, the fused serving postprocess (impl="fused") and the
+chunk-skipping top-k (topk_impl="sparse_pallas"). Beside them runs the
+fused inverted-residual kernel over blocks 0-2 of the trained trunk, which
+the model does not wire in. The script prints one JSON line per phase:
 
-  device     card, power limit, torch/CUDA versions; TF32 turned off
-  build      nvcc of csrc/*.cu, all sources at once, and ptxas's report
-  kernel_*   each hand-written kernel against its plain PyTorch version on
-             the main path's inputs and shapes (B = 32: NMS over
-             P = 32 * 90 problems of K = 300; gathers 3,234 -> 27,000 and
-             27,000 -> 300 rows), and NMS edge cases; bit-equal or fail
-  main_path  4 requests of 32 images; launch counts reset just before and
-             read just after: 1 NMS and 2 gathers per batch, or fail
-  reference  the card's head outputs against the CPU's on 2 images, and
-             the postprocess through the kernels against the plain
-             versions on the same head outputs, bit-equal
-  e2e        predict img/s at b32 and b128, with a forward/postprocess split
+  device       card, power limit, torch/CUDA versions; TF32 turned off
+  build        nvcc of csrc/*.cu, one process per source, all started
+               together, and ptxas's report
+  kernel_*     each hand-written kernel against its plain PyTorch version
+               on the main paths' inputs and shapes at B = 32, and edge
+               cases: NMS over P = 32 * 90 problems of K = 300 and over
+               P = 32 class-offset problems of K = 1,024 and 2,048; row
+               gathers 3,234 -> 27,000 and 27,000 -> 300 rows, and
+               3,234 -> R and R -> 300 rows; the sparse top-k over
+               P = 32 * 90 rows of A = 3,234; the fused block on blocks
+               0-2. Bit-equal (the fused block: within its tolerance) or
+               fail
+  main_path_*  4 requests of 32 images per mode; launch counts reset just
+               before and read just after, or fail; the fused path's
+               branch per batch; each mode's detections against the
+               reference postprocess on the same head outputs
+  reference    the card's head outputs against the CPU's on 2 images, and
+               the postprocess through the kernels against the plain
+               versions on the same head outputs, bit-equal
+  e2e          predict img/s at b32 and b128 for each postprocess mode,
+               with a forward/postprocess split, and the cost of the fused
+               path's host read
+  trace_b128   where the device time of a b128 predict goes, per mode
 
 then the `kernels` line (time, bound, plain and library time of each
 kernel), the card line from nvidia-smi, and the last line
@@ -43,6 +57,13 @@ _FP32_OPS_PER_S = 67e12
 # f32 operations per IoU test in csrc/nms.cu: 2 min, 2 max, 2 sub, 2 clamp,
 # mul, add, sub, max, div, compare
 _OPS_PER_IOU = 14
+# the sparse top-k's arguments on the main path (detection.py)
+_TOPK_K, _TOPK_SLOTS = 300, 8
+# the fused block against its plain version: |kernel - plain| <= atol +
+# rtol * |plain|. Both sum the same fp32 products in another order (fmaf
+# in the kernel, cuDNN with TF32 off in the plain version), over at most
+# 72 terms per sum; 1e-4 leaves a wide margin over that rounding.
+_BLOCK_ATOL = _BLOCK_RTOL = 1e-4
 
 
 def emit(obj):
@@ -108,8 +129,9 @@ def shapes_images(rng, b, size=320):
 
 
 def head_to_candidates(det, outputs):
-    """The main path's postprocess up to the NMS: scores, boxes, and the
-    per-(image, class) candidates with the gather indices that made them."""
+    """The main path's postprocess up to the NMS: scores, boxes, the
+    per-(image, class) candidates with the gather indices that made them,
+    and the foreground score rows the top-k takes."""
     import torch
 
     from demonet_tpu_torch.models import detection
@@ -120,14 +142,38 @@ def head_to_candidates(det, outputs):
         outputs["cls_logits"], outputs["bbox_regression"], anchors, cfg)
     b, a, c = scores.shape
     k = min(cfg.topk_candidates, a)
-    _, top_idx = detection._sorted_topk(scores[..., 1:].transpose(1, 2), k)
+    fg = scores[..., 1:].transpose(1, 2).contiguous()
+    _, top_idx = detection._sorted_topk(fg, k)
     cand_boxes, cand_sc = detection._select_candidates(
         scores, boxes, cfg, "exact", "auto")
     return {
+        "scores": scores, "fg": fg,
         "boxes": boxes, "top_idx": top_idx.reshape(b, -1).to(torch.int32),
         "cand_boxes": cand_boxes.reshape(b * (c - 1), k, 4).contiguous(),
         "cand_sc": cand_sc.reshape(b * (c - 1), k).contiguous(),
     }
+
+
+def fused_shapes(det, cand, r):
+    """The fused path's kernel inputs at capacity r: the class-offset NMS
+    problem per image, the candidate gather (3,234 -> r rows: the r best
+    live entries' anchors) and the final gather (r -> 300 rows)."""
+    import torch
+
+    from demonet_tpu_torch.models import detection
+
+    scores, all_boxes = cand["scores"], cand["boxes"]
+    b, a, _ = scores.shape
+    off, nms_sc, boxes, _ = detection._fused_candidates(
+        scores, all_boxes, det.config, r, "auto")
+    order = torch.sort(cand["fg"].reshape(b, -1), dim=1, descending=True,
+                       stable=True)[1][:, :r]
+    cand_idx = (order % a).to(torch.int32).contiguous()
+    final_idx = detection._sorted_topk(nms_sc, 300)[1].to(
+        torch.int32).contiguous()
+    return {"nms": (off.contiguous(), nms_sc.contiguous()),
+            "candidate": (all_boxes.contiguous(), cand_idx),
+            "final": (boxes.contiguous(), final_idx)}
 
 
 def nms_work(keep, scores, thr):
@@ -154,6 +200,39 @@ def gather_bytes(table, idx, out_numel):
     return rows * 16 + idx.numel() * 4 + out_numel * 4
 
 
+def topk_work(rows, k, thresh):
+    """Bytes and operations the sparse top-k needs on these rows: every
+    score read and compared with thresh once, (score, index) written for
+    each output slot, and a comparison sort of each row's live entries
+    (L log2 L comparisons for L live)."""
+    import torch
+
+    live = (rows > thresh).sum(dim=-1).double()
+    sort_ops = float((live * torch.log2(live.clamp(min=1.0))).sum())
+    nbytes = rows.numel() * 4 + rows.numel() // rows.shape[-1] * k * 8
+    return nbytes, rows.numel() + sort_ops
+
+
+def block_work(x, folded, out):
+    """Bytes and fp32 operations of one fused block: x read, out written
+    and the folded weights read once; 2 per multiply-add of the expand,
+    depthwise and project convs, 1 per bias add, activation and residual
+    add (hard-swish counted as 1, as its cheapest form is not the point)."""
+    b, ci, h, w = x.shape
+    _, co, ho, wo = out.shape
+    ce = folded["depthwise"]["weight"].shape[0]
+    weights = sum(t.numel() for name in ("expand", "depthwise", "project")
+                  if folded[name] is not None
+                  for t in folded[name].values())
+    nbytes = (x.numel() + out.numel() + weights) * 4
+    ops = 0
+    if folded["expand"] is not None:
+        ops += b * h * w * ce * (2 * ci + 2)
+    ops += b * ho * wo * ce * (2 * 9 + 2)
+    ops += b * ho * wo * co * (2 * ce + 2)
+    return nbytes, ops
+
+
 def bound(nbytes, ops):
     t_bytes = nbytes / _HBM_BYTES_PER_S * 1e3
     t_ops = ops / _FP32_OPS_PER_S * 1e3
@@ -163,6 +242,44 @@ def bound(nbytes, ops):
 def check(cond, what):
     if not cond:
         raise AssertionError(f"chip_smoke: {what}")
+
+
+def synthetic_topk_rows(p, a, thresh, live_chunks, levels=None, seed=0):
+    """(p, a) scores below thresh except in live_chunks[r] chunks of row r
+    (chosen at random), each holding 1-6 live entries; with `levels`, live
+    values are drawn from those few values, so keys tie across chunks."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    n_chunks = -(-a // 128)
+    x = torch.rand((p, a), generator=gen) * (thresh * 0.9)
+    rank = torch.argsort(torch.rand((p, n_chunks), generator=gen), dim=1)
+    chunk_live = rank < live_chunks[:, None]                  # (p, n_chunks)
+    col = torch.arange(a)
+    in_live = chunk_live[:, col // 128]                        # (p, a)
+    hot = in_live & (torch.rand((p, a), generator=gen) < 4.0 / 128)
+    # one sure entry per live chunk, at a random lane inside the row
+    width = torch.clamp(a - torch.arange(n_chunks) * 128, max=128)
+    lane = (torch.rand((p, n_chunks), generator=gen) * width).long()
+    sure = (torch.arange(n_chunks) * 128 + lane).clamp(max=a - 1)
+    rows_i, chunks_i = torch.nonzero(chunk_live, as_tuple=True)
+    hot[rows_i, sure[rows_i, chunks_i]] = True
+    if levels is None:
+        vals = thresh * 2 + torch.rand((p, a), generator=gen) * 0.9
+    else:
+        lv = torch.tensor(levels, dtype=torch.float32)
+        vals = lv[torch.randint(0, len(levels), (p, a), generator=gen)]
+    return torch.where(hot, vals, x)
+
+
+def live_chunk_counts(rows, thresh):
+    import torch
+    import torch.nn.functional as F
+
+    p, a = rows.shape
+    n_chunks = -(-a // 128)
+    live = F.pad(rows > thresh, (0, n_chunks * 128 - a))
+    return live.reshape(p, n_chunks, 128).any(dim=2).sum(dim=1)
 
 
 def main():
@@ -175,6 +292,7 @@ def main():
     import numpy as np
 
     from demonet_tpu_torch.engine.evaluate import make_predict_step
+    from demonet_tpu_torch.models import detection
     from demonet_tpu_torch.models.builders import ssdlite320_mobilenet_v3_large
     from demonet_tpu_torch.models.detection import (
         _NEG_INF,
@@ -182,11 +300,17 @@ def main():
         preprocess,
     )
     from demonet_tpu_torch.ops import _build
+    from demonet_tpu_torch.ops.fused_block import (
+        fold_inverted_residual,
+        fused_inverted_residual,
+        fused_inverted_residual_plain,
+    )
     from demonet_tpu_torch.ops.gather import (
         gather_rows_batch,
         gather_rows_batch_plain,
     )
     from demonet_tpu_torch.ops.nms import nms_keep_batch, nms_keep_batch_plain
+    from demonet_tpu_torch.ops.topk import topk_sparse, topk_sparse_plain
     from demonet_tpu_torch.utils.weights import load_jax_variables
 
     t_start = time.perf_counter()
@@ -223,8 +347,23 @@ def main():
     with np.load(_NPZ) as z:
         load_jax_variables(trained.model, {k: z[k] for k in z.files})
     random_init = ssdlite320_mobilenet_v3_large(num_classes=91, seed=0)
+    cfg = trained.config
+    anchors = torch.as_tensor(trained.anchors, device=dev)
+    counters = {"nms_keep_batch": nms_keep_batch,
+                "gather_rows_batch": gather_rows_batch,
+                "topk_sparse": topk_sparse,
+                "fused_inverted_residual": fused_inverted_residual}
+    branches = detection._postprocess_fused.branches
 
-    # -- kernels against their plain versions at the main path's shapes ----
+    def reset_counts():
+        for fn in counters.values():
+            fn.launches = 0
+        branches.clear()
+
+    def read_counts():
+        return {name: fn.launches for name, fn in counters.items()}
+
+    # -- kernels against their plain versions at the main paths' shapes ----
     regimes = {}
     with torch.inference_mode():
         for name, det in (("trained", trained), ("random", random_init)):
@@ -239,6 +378,21 @@ def main():
               f"NMS kernel != plain on the {name} candidates "
               f"({int((k_keep != p_keep).sum())} entries differ)")
         emit({"phase": "kernel_nms", "regime": name,
+              "problems": list(sc.shape), "bit_equal": True,
+              "valid": int((sc > thr).sum()), "kept": int(k_keep.sum())})
+
+    # the fused path's shapes: one class-offset problem per image
+    fused_in = {r: fused_shapes(trained, regimes["trained"][1], r)
+                for r in (1024, 2048)}
+    for r, f in fused_in.items():
+        off, sc = f["nms"]
+        k_keep = nms_keep_batch(off, sc, iou, thr)
+        p_keep = nms_keep_batch_plain(off, sc, iou, thr)
+        torch.cuda.synchronize()
+        check(torch.equal(k_keep, p_keep),
+              f"NMS kernel != plain on the fused K={r} problems "
+              f"({int((k_keep != p_keep).sum())} entries differ)")
+        emit({"phase": "kernel_nms", "regime": "trained, fused path",
               "problems": list(sc.shape), "bit_equal": True,
               "valid": int((sc > thr).sum()), "kept": int(k_keep.sum())})
 
@@ -281,6 +435,9 @@ def main():
         "final": (cand_flat, final_idx),
         "adversarial": (adv, adv_idx),
     }
+    for r, f in fused_in.items():
+        gather_cases[f"fused_candidate_r{r}"] = f["candidate"]
+        gather_cases[f"fused_final_r{r}"] = f["final"]
     for name, (table, idx) in gather_cases.items():
         for cm in (False, True):
             got = gather_rows_batch(table, idx, coord_major=cm)
@@ -292,33 +449,220 @@ def main():
               "table": list(table.shape), "idx": list(idx.shape),
               "layouts": ["row", "coord_major"], "bit_equal": True})
 
-    # -- main path: 4 requests of 32 through the user's entry point --------
-    step = make_predict_step(trained)
-    step(trained.model, batches[0], sizes)  # warm-up, outside the count
+    # sparse top-k: P = 32 * 90 rows of A = 3,234, k = 300, slots = 8
+    p_rows, a = b * (cfg.num_classes - 1), anchors.shape[0]
+    st = cfg.score_thresh
+    gen = torch.Generator().manual_seed(3)
+    topk_cases = {
+        "trained": regimes["trained"][1]["fg"].reshape(p_rows, a),
+        "synthetic_within_slots": synthetic_topk_rows(
+            p_rows, a, st, torch.randint(1, _TOPK_SLOTS + 1, (p_rows,),
+                                         generator=gen), seed=4),
+        "chunks_0_8_9": synthetic_topk_rows(
+            p_rows, a, st, torch.tensor([0, 8, 9]).repeat(p_rows // 3 + 1)[
+                :p_rows], seed=5),
+        "ties_across_chunks": synthetic_topk_rows(
+            p_rows, a, st, torch.randint(1, 13, (p_rows,), generator=gen),
+            levels=(0.25, 0.5, 0.75), seed=6),
+        "random_weights": regimes["random"][1]["fg"].reshape(p_rows, a),
+    }
+    topk_rows = {}
+    for name, rows in topk_cases.items():
+        rows = rows.to(dev).contiguous()
+        topk_cases[name] = rows
+        k_sc, k_idx = topk_sparse(rows, _TOPK_K, st, _TOPK_SLOTS)
+        p_sc, p_idx = topk_sparse_plain(rows, _TOPK_K, st)
+        torch.cuda.synchronize()
+        check(torch.equal(k_sc.view(torch.int32), p_sc.view(torch.int32))
+              and torch.equal(k_idx, p_idx),
+              f"top-k kernel != plain on {name} "
+              f"({int((k_idx != p_idx).sum())} indices differ)")
+        chunks = live_chunk_counts(rows, st)
+        topk_rows[name] = {
+            "rows": p_rows, "rows_empty": int((chunks == 0).sum()),
+            "rows_compact": int(((chunks > 0) & (chunks <= _TOPK_SLOTS)).sum()),
+            "rows_whole_row": int((chunks > _TOPK_SLOTS).sum()),
+            "live_chunks_max": int(chunks.max())}
+        emit({"phase": "kernel_topk", "case": name, "shape": [p_rows, a],
+              "k": _TOPK_K, "slots": _TOPK_SLOTS, "bit_equal": True,
+              **topk_rows[name]})
+    check(topk_rows["chunks_0_8_9"]["rows_whole_row"] == p_rows // 3
+          and topk_rows["synthetic_within_slots"]["rows_whole_row"] == 0,
+          f"top-k cases do not cover both branches: {topk_rows}")
+
+    # fused inverted-residual block: blocks 0-2 of the trained trunk
+    trunk = trained.model.extractor.trunk
+    folded = [fold_inverted_residual(trunk.blocks[i]) for i in range(3)]
+    # the trunk's activations as the model leaves them (channels_last in
+    # memory on the card), and the contiguous NCHW copies the kernel takes
+    with torch.inference_mode():
+        native = [trunk.stem(preprocess(batches[0], cfg,
+                                        resize=False).permute(0, 3, 1, 2))]
+        for i in range(3):
+            native.append(trunk.blocks[i](native[-1]))
+    xs = [t.contiguous() for t in native]
+    block_err = []
+    for i in range(3):
+        with torch.inference_mode():
+            got = fused_inverted_residual(xs[i], **folded[i])
+            want = fused_inverted_residual_plain(xs[i], **folded[i])
+        torch.cuda.synchronize()
+        diff = (got - want).abs()
+        big = want.abs() >= 1e-2
+        err = {"block": i, "x": list(xs[i].shape), "out": list(got.shape),
+               "max_abs_err": float(diff.max()),
+               "max_rel_err_where_abs_ge_1e-2": float(
+                   (diff[big] / want.abs()[big]).max()),
+               "max_share_of_tolerance": float(
+                   (diff / (_BLOCK_ATOL + _BLOCK_RTOL * want.abs())).max()),
+               "max_abs_err_vs_unfused_module": float(
+                   (got - xs[i + 1]).abs().max())}
+        check(bool((diff <= _BLOCK_ATOL + _BLOCK_RTOL * want.abs()).all()),
+              f"fused block kernel != plain beyond tolerance: {err}")
+        block_err.append(err)
+    emit({"phase": "kernel_fused_block", "weights": "trained",
+          "tolerance": {"atol": _BLOCK_ATOL, "rtol": _BLOCK_RTOL},
+          "trunk_activations_channels_last": native[0].is_contiguous(
+              memory_format=torch.channels_last),
+          "blocks": block_err})
+
+    # -- main paths: 4 requests of 32 through the user's entry point -------
+    def check_detections(dets):
+        n_valid = []
+        for d in dets:
+            check(d["boxes"].shape == (b, 300, 4)
+                  and d["scores"].shape == (b, 300)
+                  and d["labels"].shape == (b, 300)
+                  and d["valid"].shape == (b, 300)
+                  and d["labels"].dtype == torch.int32
+                  and d["valid"].dtype == torch.bool, "detection shapes")
+            check(bool(torch.isfinite(d["boxes"]).all())
+                  and bool(torch.isfinite(d["scores"]).all()),
+                  "finite outputs")
+            v = d["valid"]
+            check(bool((d["scores"][v] > cfg.score_thresh).all())
+                  and bool((d["labels"][v] >= 1).all())
+                  and bool((d["labels"][v] <= 90).all()), "valid detections")
+            n_valid.append(int(v.sum()))
+        return n_valid
+
+    def drive(step, det=trained, xs_in=batches):
+        """Run the step on each batch with every count reset just before
+        and read just after; the fused path's branch of each batch."""
+        step(det.model, xs_in[0], sizes)  # warm-up, outside the count
+        torch.cuda.synchronize()
+        reset_counts()
+        dets, taken = [], []
+        for x in xs_in:
+            before = dict(branches)
+            dets.append(step(det.model, x, sizes))
+            taken.extend(k for k in branches if branches[k] != before.get(k, 0))
+        torch.cuda.synchronize()
+        return dets, read_counts(), taken
+
+    def same_head_outputs(det, xs_in, **kwargs):
+        """The detections of one mode and of the reference postprocess on
+        the same head outputs, checked: valid, scores and labels bit-equal,
+        boxes bit-equal or within 1e-4 px. Returns the largest box diff."""
+        worst = 0.0
+        for x in xs_in:
+            with torch.inference_mode():
+                o = det.model(preprocess(x, det.config, resize=False))
+                args = (o["cls_logits"], o["bbox_regression"],
+                        torch.as_tensor(det.anchors, device=dev), det.config,
+                        sizes)
+                want = postprocess_detections(*args)
+                got = postprocess_detections(*args, **kwargs)
+            for key in ("valid", "scores", "labels"):
+                check(torch.equal(got[key], want[key]),
+                      f"{kwargs}: {key} != reference postprocess")
+            box_diff = float((got["boxes"] - want["boxes"]).abs().max())
+            check(box_diff <= 1e-4, f"{kwargs}: boxes differ by {box_diff}")
+            worst = max(worst, box_diff)
+        return worst
+
+    launches_by_path = {}
+    dets, counts, _ = drive(make_predict_step(trained))
+    check(counts == {"nms_keep_batch": 4, "gather_rows_batch": 8,
+                     "topk_sparse": 0, "fused_inverted_residual": 0},
+          f"reference path launch counts {counts}, want 1 NMS and 2 "
+          "gathers per batch")
+    launches_by_path["reference"] = counts
+    emit({"phase": "main_path", "mode": "reference", "batches": len(batches),
+          "batch": b, "launches": counts,
+          "valid_detections": check_detections(dets)})
+
+    dets, counts, taken = drive(make_predict_step(trained, impl="fused"))
+    check(counts == {"nms_keep_batch": 4, "gather_rows_batch": 8,
+                     "topk_sparse": 0, "fused_inverted_residual": 0}
+          and len(taken) == 4,
+          f"fused path launch counts {counts}, branches {taken}: want 1 NMS "
+          "and 2 gathers per batch on every branch")
+    launches_by_path["fused"] = counts
+    fused_branches = taken
+    n_valid = check_detections(dets)
+    box_diff = same_head_outputs(trained, batches, impl="fused")
+    # random weights: dense scores, so every batch must take the fallback
+    dets_r, counts_r, taken_r = drive(
+        make_predict_step(random_init, impl="fused"), random_init,
+        batches[:1])
+    check(taken_r == ["fallback"], f"random weights took {taken_r}")
+    box_diff_r = same_head_outputs(random_init, batches[:1], impl="fused")
+    emit({"phase": "main_path_fused", "batches": len(batches), "batch": b,
+          "launches": counts, "branches": fused_branches,
+          "valid_detections": n_valid,
+          "vs_reference_same_head": "valid/scores/labels bit-equal",
+          "max_box_diff_vs_reference": box_diff,
+          "random_weights": {"branches": taken_r, "launches": counts_r,
+                             "max_box_diff_vs_reference": box_diff_r}})
+
+    dets, counts, _ = drive(make_predict_step(trained,
+                                              topk_impl="sparse_pallas"))
+    check(counts == {"nms_keep_batch": 4, "gather_rows_batch": 8,
+                     "topk_sparse": 4, "fused_inverted_residual": 0},
+          f"sparse top-k path launch counts {counts}, want 1 top-k, 1 NMS "
+          "and 2 gathers per batch")
+    launches_by_path["sparse_topk"] = counts
+    box_diff = same_head_outputs(trained, batches, topk_impl="sparse_pallas")
+    check(box_diff == 0.0, "sparse top-k boxes != reference")
+    emit({"phase": "main_path_sparse_topk", "batches": len(batches),
+          "batch": b, "launches": counts,
+          "valid_detections": check_detections(dets),
+          "vs_exact_topk_same_head": "bit-equal"})
+
+    # blocks 0-2 of the trained trunk through the fused kernel (the model
+    # keeps its unfused blocks, as the JAX package does)
+    def fused_blocks(x):
+        with torch.inference_mode():
+            y = trunk.stem(preprocess(x, cfg, resize=False).permute(
+                0, 3, 1, 2)).contiguous()
+            for f in folded:
+                y = fused_inverted_residual(y, **f)
+        return y
+
+    fused_blocks(batches[0])
     torch.cuda.synchronize()
-    nms_keep_batch.launches = 0
-    gather_rows_batch.launches = 0
-    dets = [step(trained.model, x, sizes) for x in batches]
+    reset_counts()
+    ys = [fused_blocks(x) for x in batches]
     torch.cuda.synchronize()
-    launches = {"nms_keep_batch": nms_keep_batch.launches,
-                "gather_rows_batch": gather_rows_batch.launches}
-    check(launches == {"nms_keep_batch": 4, "gather_rows_batch": 8},
-          f"launch counts {launches}, want 1 NMS and 2 gathers per batch")
-    n_valid = []
-    for d in dets:
-        check(d["boxes"].shape == (b, 300, 4) and d["scores"].shape == (b, 300)
-              and d["labels"].shape == (b, 300) and d["valid"].shape == (b, 300)
-              and d["labels"].dtype == torch.int32
-              and d["valid"].dtype == torch.bool, "detection shapes/dtypes")
-        check(bool(torch.isfinite(d["boxes"]).all())
-              and bool(torch.isfinite(d["scores"]).all()), "finite outputs")
-        v = d["valid"]
-        check(bool((d["scores"][v] > 0.001).all())
-              and bool((d["labels"][v] >= 1).all())
-              and bool((d["labels"][v] <= 90).all()), "valid detections")
-        n_valid.append(int(v.sum()))
-    emit({"phase": "main_path", "batches": len(batches), "batch": b,
-          "launches": launches, "valid_detections": n_valid})
+    counts = read_counts()
+    check(counts["fused_inverted_residual"] == 3 * len(batches)
+          and sum(counts.values()) == 3 * len(batches),
+          f"fused blocks launch counts {counts}, want 3 per batch")
+    launches_by_path["fused_blocks"] = counts
+    worst = 0.0
+    for x, y in zip(batches, ys):
+        with torch.inference_mode():
+            want = trunk.stem(preprocess(x, cfg, resize=False).permute(
+                0, 3, 1, 2))
+            for i in range(3):
+                want = trunk.blocks[i](want)
+        check(y.shape == want.shape and bool(torch.isfinite(y).all()),
+              "fused blocks output")
+        worst = max(worst, float((y - want).abs().max()))
+    emit({"phase": "main_path_fused_blocks", "batches": len(batches),
+          "batch": b, "launches": counts,
+          "max_abs_err_vs_unfused_blocks": worst})
 
     # -- reference: the card against the CPU, kernels against plain --------
     out_main, _ = regimes["trained"]
@@ -332,116 +676,230 @@ def main():
                 for k in ref}
     check(all(e <= 1e-3 for e in head_err.values()),
           f"card vs CPU head outputs differ by {head_err} (limit 1e-3)")
-    anchors = torch.as_tensor(trained.anchors, device=dev)
     with torch.inference_mode():
-        pp = {impl: postprocess_detections(
+        pp = {(impl, mode): postprocess_detections(
             out_main["cls_logits"], out_main["bbox_regression"], anchors,
-            trained.config, sizes, nms_impl=impl, gather_impl=impl)
-            for impl in ("auto", "plain")}
-    for key in pp["auto"]:
-        check(torch.equal(pp["auto"][key], pp["plain"][key]),
-              f"postprocess through kernels != plain in {key}")
+            cfg, sizes, nms_impl=impl, gather_impl=impl, impl=mode)
+            for impl in ("auto", "plain") for mode in ("reference", "fused")}
+    for mode in ("reference", "fused"):
+        for key in pp["auto", mode]:
+            check(torch.equal(pp["auto", mode][key], pp["plain", mode][key]),
+                  f"{mode} postprocess through kernels != plain in {key}")
     emit({"phase": "reference", "head_max_abs_err_vs_cpu": head_err,
-          "head_limit": 1e-3, "postprocess_kernels_vs_plain": "bit-equal"})
+          "head_limit": 1e-3,
+          "postprocess_kernels_vs_plain": "bit-equal (reference and fused)"})
 
-    # -- timings at the main path's shapes ---------------------------------
-    rows = []
-    nms_rows = {}
-    for name, (_, c) in regimes.items():
-        bx, sc = c["cand_boxes"], c["cand_sc"]
+    # -- timings at the main paths' shapes ---------------------------------
+    def total_launches(name):
+        return sum(c[name] for c in launches_by_path.values())
+
+    def by_path(name):
+        return {p: c[name] for p, c in launches_by_path.items() if c[name]}
+
+    def nms_row(bx, sc, plain_iters):
         keep = nms_keep_batch(bx, sc, iou, thr)
         nbytes, ops = nms_work(keep, sc, thr)
         bms, by = bound(nbytes, ops)
         k_t = timed(lambda: nms_keep_batch(bx, sc, iou, thr), 50)
-        p_t = timed(lambda: nms_keep_batch_plain(bx, sc, iou, thr), 3, 1)
-        nms_rows[name] = {
-            "ms": k_t["ms"], "plain_ms": p_t["ms"], "bound_ms": bms,
-            "bound_by": by, "bytes": nbytes, "ops": ops,
-            "event_ms": k_t["event_ms"], "plain_event_ms": p_t["event_ms"],
-            "ms_from": k_t["ms_from"]}
-    main = nms_rows["trained"]
-    rows.append({
-        "name": "nms_keep_batch", "route": "cuda",
-        "source": "demonet_tpu_torch/csrc/nms.cu",
-        "replaces": "demonet_tpu/ops/nms_pallas.py:80",
-        "launches": launches["nms_keep_batch"], "max_abs_err": 0.0,
-        "bit_equal": True, "ms": main["ms"], "plain_ms": main["plain_ms"],
-        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
-        "library_ms": None, "shape": [b * 90, 300],
-        "dense_random_weights": nms_rows["random"]})
+        p_t = timed(lambda: nms_keep_batch_plain(bx, sc, iou, thr),
+                    plain_iters, 1)
+        return {"shape": list(sc.shape), "ms": k_t["ms"],
+                "plain_ms": p_t["ms"], "bound_ms": bms, "bound_by": by,
+                "library_ms": None, "bytes": nbytes, "ops": ops,
+                "event_ms": k_t["event_ms"], "plain_event_ms": p_t["event_ms"],
+                "ms_from": k_t["ms_from"]}
 
-    calls = {}
-    for name in ("candidate", "final"):
-        table, idx = gather_cases[name]
+    def gather_row(table, idx):
         idx64 = idx.long()[..., None].expand(-1, -1, 4)
         nbytes = gather_bytes(table, idx, idx.numel() * 4)
         k_t = timed(lambda: gather_rows_batch(table, idx), 200)
         p_t = timed(lambda: gather_rows_batch_plain(table, idx), 200)
         l_t = timed(lambda: torch.gather(table, 1, idx64), 200)
-        calls[name] = {
-            "table": list(table.shape), "idx": list(idx.shape),
-            "ms": k_t["ms"], "plain_ms": p_t["ms"], "library_ms": l_t["ms"],
-            "bound_ms": bound(nbytes, 0)[0], "bytes": nbytes,
-            "event_ms": k_t["event_ms"], "ms_from": k_t["ms_from"]}
+        return {"table": list(table.shape), "idx": list(idx.shape),
+                "ms": k_t["ms"], "plain_ms": p_t["ms"],
+                "library_ms": l_t["ms"], "bound_ms": bound(nbytes, 0)[0],
+                "bound_by": "bytes", "bytes": nbytes,
+                "event_ms": k_t["event_ms"], "ms_from": k_t["ms_from"]}
+
+    tier_counts = {r: fused_branches.count(f"tier_{r}") for r in (1024, 2048)}
+    rows = []
+    nms_rows = {name: nms_row(c["cand_boxes"], c["cand_sc"], 3)
+                for name, (_, c) in regimes.items()}
+    nms_fused = {}
+    for r, f in fused_in.items():
+        nms_fused[f"K{r}"] = {**nms_row(*f["nms"], 2), "max_abs_err": 0.0,
+                              "launches": tier_counts[r],
+                              "launches_from": "fused path, batches on "
+                                               f"tier {r}"}
+    main = nms_rows["trained"]
+    rows.append({
+        "name": "nms_keep_batch", "route": "cuda",
+        "source": "demonet_tpu_torch/csrc/nms.cu",
+        "replaces": "demonet_tpu/ops/nms_pallas.py:80",
+        "launches": total_launches("nms_keep_batch"),
+        "launches_by_path": by_path("nms_keep_batch"), "max_abs_err": 0.0,
+        "bit_equal": True, **{k: main[k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "shape": main["shape"], "detail": main,
+        "dense_random_weights": nms_rows["random"],
+        "fused_path_shapes": nms_fused})
+
+    calls = {name: gather_row(*gather_cases[name])
+             for name in ("candidate", "final")}
     total = {key: sum(c[key] for c in calls.values())
              for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    g_fused = {}
+    for r in (1024, 2048):
+        fc = {name: gather_row(*gather_cases[f"fused_{name}_r{r}"])
+              for name in ("candidate", "final")}
+        g_fused[f"R{r}"] = {
+            **{key: sum(c[key] for c in fc.values())
+               for key in ("ms", "plain_ms", "library_ms", "bound_ms")},
+            "bound_by": "bytes", "max_abs_err": 0.0,
+            "launches": 2 * tier_counts[r],
+            "launches_from": f"fused path, batches on tier {r}",
+            "calls": fc}
     rows.append({
         "name": "gather_rows_batch", "route": "cuda",
         "source": "demonet_tpu_torch/csrc/gather.cu",
         "replaces": "demonet_tpu/ops/gather_pallas.py:86",
-        "launches": launches["gather_rows_batch"], "max_abs_err": 0.0,
+        "launches": total_launches("gather_rows_batch"),
+        "launches_by_path": by_path("gather_rows_batch"), "max_abs_err": 0.0,
         "bit_equal": True, **total, "bound_by": "bytes",
-        "per_predict": "candidate + final gather", "calls": calls})
+        "per_predict": "candidate + final gather", "calls": calls,
+        "fused_path_shapes": g_fused})
+
+    def topk_row(rows_in):
+        nbytes, ops = topk_work(rows_in, _TOPK_K, st)
+        bms, by = bound(nbytes, ops)
+        masked = torch.where(rows_in > st, rows_in,
+                             torch.tensor(float("-inf"), device=dev))
+        k_t = timed(lambda: topk_sparse(rows_in, _TOPK_K, st, _TOPK_SLOTS), 50)
+        p_t = timed(lambda: topk_sparse_plain(rows_in, _TOPK_K, st), 20)
+        l_t = timed(lambda: torch.topk(rows_in, _TOPK_K, dim=-1), 20)
+        s_t = timed(lambda: torch.sort(masked, dim=-1, descending=True,
+                                       stable=True), 20)
+        return {"ms": k_t["ms"], "plain_ms": p_t["ms"], "bound_ms": bms,
+                "bound_by": by, "library_ms": l_t["ms"],
+                "library": "torch.topk(k=300) on the same rows",
+                "stable_sort_ms": s_t["ms"], "bytes": nbytes, "ops": ops,
+                "event_ms": k_t["event_ms"], "ms_from": k_t["ms_from"]}
+
+    t_main = topk_row(topk_cases["trained"])
+    rows.append({
+        "name": "topk_sparse", "route": "cuda",
+        "source": "demonet_tpu_torch/csrc/topk.cu",
+        "replaces": "demonet_tpu/ops/topk_pallas.py:188",
+        "launches": total_launches("topk_sparse"),
+        "launches_by_path": by_path("topk_sparse"), "max_abs_err": 0.0,
+        "bit_equal": True, **{k: t_main[k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "shape": [p_rows, a], "k": _TOPK_K, "slots": _TOPK_SLOTS,
+        "detail": t_main, "branches": topk_rows["trained"],
+        "dense_random_weights": {**topk_row(topk_cases["random_weights"]),
+                                 "branches": topk_rows["random_weights"]}})
+
+    blocks = []
+    for i in range(3):
+        x_i, f = xs[i], folded[i]
+        with torch.inference_mode():
+            out = fused_inverted_residual(x_i, **f)
+            nbytes, ops = block_work(x_i, f, out)
+            bms, by = bound(nbytes, ops)
+            k_t = timed(lambda: fused_inverted_residual(x_i, **f), 20)
+            p_t = timed(lambda: fused_inverted_residual_plain(x_i, **f), 20)
+            l_t = timed(lambda: trunk.blocks[i](native[i]), 20)
+        blocks.append({"block": i, "x": list(x_i.shape),
+                       "out": list(out.shape), "ms": k_t["ms"],
+                       "plain_ms": p_t["ms"], "library_ms": l_t["ms"],
+                       "bound_ms": bms, "bound_by": by, "bytes": nbytes,
+                       "ops": ops, "event_ms": k_t["event_ms"],
+                       "ms_from": k_t["ms_from"]})
+    b_sum = {key: sum(c[key] for c in blocks)
+             for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    rows.append({
+        "name": "fused_inverted_residual", "route": "cuda",
+        "source": "demonet_tpu_torch/csrc/fused_block.cu",
+        "replaces": "demonet_tpu/ops/fused_block.py:144",
+        "launches": total_launches("fused_inverted_residual"),
+        "launches_by_path": by_path("fused_inverted_residual"),
+        "max_abs_err": max(e["max_abs_err"] for e in block_err),
+        "tolerance": {"atol": _BLOCK_ATOL, "rtol": _BLOCK_RTOL}, **b_sum,
+        "bound_by": "+".join(sorted({c["bound_by"] for c in blocks})),
+        "library": "the port's unfused block (cuDNN convs, BN, activations) "
+                   "on the trunk's own activations",
+        "per_pass": "blocks 0-2 at b32", "calls": blocks})
 
     e2e = {}
+    modes = {"reference": {}, "fused": {"impl": "fused"},
+             "sparse_topk": {"topk_impl": "sparse_pallas"}}
+    steps = {m: make_predict_step(trained, **kw) for m, kw in modes.items()}
     for bs, iters in ((32, 30), (128, 12)):
         x = torch.from_numpy(shapes_images(np.random.default_rng(bs), bs)).to(
             dev)
         sz = torch.tensor([[480, 640]] * bs, dtype=torch.int32, device=dev)
-        for _ in range(3):
-            step(trained.model, x, sz)
-        torch.cuda.synchronize()
-        per_batch = []
-        for _ in range(iters):   # closed loop, one caller, batch after batch
-            t0 = time.perf_counter()
-            step(trained.model, x, sz)
-            torch.cuda.synchronize()
-            per_batch.append((time.perf_counter() - t0) * 1e3)
-        q1, med, q3 = np.percentile(per_batch, [25, 50, 75])
         with torch.inference_mode():
             fwd_ms = cuda_ms(lambda: trained.model(
-                preprocess(x, trained.config, resize=False)), 5)
-            o = trained.model(preprocess(x, trained.config, resize=False))
-            post_ms = cuda_ms(lambda: postprocess_detections(
-                o["cls_logits"], o["bbox_regression"], anchors,
-                trained.config, sz), 5)
-        e2e[f"b{bs}"] = {
-            "img_per_s": bs / med * 1e3, "ms_per_batch_median": med,
-            "ms_per_batch_q1_q3": [q1, q3], "n": iters,
-            "forward_ms": fwd_ms, "postprocess_ms": post_ms}
+                preprocess(x, cfg, resize=False)), 5)
+            o = trained.model(preprocess(x, cfg, resize=False))
+            sc_bs = detection._scores_and_boxes(
+                o["cls_logits"], o["bbox_regression"], anchors, cfg)[0]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(20):
+                detection._fused_capacity(sc_bs, cfg)
+            guard_ms = (time.perf_counter() - t0) * 1e3 / 20
+        for mode, kw in modes.items():
+            step = steps[mode]
+            for _ in range(3):
+                step(trained.model, x, sz)
+            torch.cuda.synchronize()
+            branches.clear()
+            per_batch = []
+            for _ in range(iters):   # closed loop, one caller, batch by batch
+                t0 = time.perf_counter()
+                step(trained.model, x, sz)
+                torch.cuda.synchronize()
+                per_batch.append((time.perf_counter() - t0) * 1e3)
+            q1, med, q3 = np.percentile(per_batch, [25, 50, 75])
+            with torch.inference_mode():
+                post_ms = cuda_ms(lambda: postprocess_detections(
+                    o["cls_logits"], o["bbox_regression"], anchors, cfg, sz,
+                    **kw), 5)
+            e2e[f"{mode}_b{bs}"] = {
+                "img_per_s": bs / med * 1e3, "ms_per_batch_median": med,
+                "ms_per_batch_q1_q3": [q1, q3], "n": iters,
+                "forward_ms": fwd_ms, "postprocess_ms": post_ms,
+                **({"branches": dict(branches),
+                    "guard_host_read_ms": guard_ms} if mode == "fused"
+                   else {})}
     emit({"phase": "e2e", "weights": "trained", "images": "shapes, seeded",
           **e2e, "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30})
 
     # where the device time of a b128 predict goes, and how idle it is
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(3):
-            step(trained.model, x, sz)
+    for mode in ("reference", "fused"):
+        step = steps[mode]
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / 3
-    per_kernel = sorted(
-        ((getattr(e, "device_time_total", None)
-          or getattr(e, "cuda_time_total", 0)) / 3e3, e.key[:60])
-        for e in prof.key_averages())[::-1]
-    busy_ms = sum(t for t, _ in per_kernel)
-    emit({"phase": "trace_b128", "wall_ms_per_batch": wall_ms,
-          "device_busy_ms_per_batch": busy_ms,
-          "device_idle_share": (1.0 - busy_ms / wall_ms) if busy_ms else None,
-          "top_kernels_ms": [[k, t] for t, k in per_kernel[:10]],
-          "seconds_so_far": time.perf_counter() - t_start})
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(3):
+                step(trained.model, x, sz)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / 3
+        per_kernel = sorted(
+            ((getattr(e, "device_time_total", None)
+              or getattr(e, "cuda_time_total", 0)) / 3e3, e.key[:60])
+            for e in prof.key_averages())[::-1]
+        busy_ms = sum(t for t, _ in per_kernel)
+        emit({"phase": "trace_b128", "mode": mode,
+              "wall_ms_per_batch": wall_ms,
+              "device_busy_ms_per_batch": busy_ms,
+              "device_idle_share": (1.0 - busy_ms / wall_ms) if busy_ms
+              else None,
+              "top_kernels_ms": [[k, t] for t, k in per_kernel[:10]],
+              "seconds_so_far": time.perf_counter() - t_start})
 
     emit({"kernels": rows})
     print(card, flush=True)

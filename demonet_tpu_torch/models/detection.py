@@ -15,8 +15,13 @@ Detections come back as padded (B, detections_per_img) tensors with a
 is gathers, sorts and comparisons only, so given the same scores and
 boxes it is bit-equal to the reference. Its two hot steps run on the
 hand-written CUDA kernels for CUDA tensors: the candidate and final row
-gathers (`ops/gather.py`, csrc/gather.cu) and the batched NMS
-(`ops/nms.py`, csrc/nms.cu).
+gathers (`ops/gather.py`, csrc/gather.cu), the batched NMS (`ops/nms.py`,
+csrc/nms.cu) and, with topk_impl "sparse" or "sparse_pallas", the
+chunk-skipping top-k (`ops/topk.py`, csrc/topk.cu).
+
+`impl="fused"` is the trained-model serving path (`_postprocess_fused`):
+one candidate set per image instead of one per (image, class), with an
+exact fallback to the reference pipeline.
 
 Top-k tie order: `lax.top_k` breaks ties by the smaller index. The port
 takes a stable descending `torch.sort` and slices, which gives the same
@@ -25,6 +30,7 @@ order; `torch.topk` promises none.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 from typing import Dict, Optional, Tuple
 
@@ -39,10 +45,9 @@ from demonet_tpu_torch.ops.gather import (
     gather_rows_batch_plain,
 )
 from demonet_tpu_torch.ops.nms import nms_keep_batch, nms_keep_batch_plain
+from demonet_tpu_torch.ops.topk import topk_sparse
 
 _NEG_INF = -1e30
-
-_LATER = "a later slice of the PyTorch port (see ROADMAP.md)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -159,12 +164,19 @@ def postprocess_detections(
 
     Returns {'boxes': (B, D, 4), 'scores': (B, D), 'labels': (B, D) int32,
              'valid': (B, D) bool}.
+
+    impl="fused" routes through the trained-model fast path
+    (`_postprocess_fused`) with an exact fallback to the reference
+    pipeline; topk_impl applies to the reference pipeline only.
     """
-    if impl != "reference":
-        raise NotImplementedError(
-            f"impl={impl!r} (fused serving) comes in {_LATER}")
+    if impl not in ("reference", "fused"):
+        raise ValueError(
+            f"impl must be 'reference' or 'fused', got {impl!r}")
     scores, boxes = _scores_and_boxes(cls_logits, bbox_regression, anchors,
                                       config)
+    if impl == "fused":
+        return _postprocess_fused(scores, boxes, config, original_sizes,
+                                  nms_impl, gather_impl)
     return _postprocess_reference_core(
         scores, boxes, config, original_sizes, nms_impl, topk_impl,
         gather_impl)
@@ -187,15 +199,32 @@ def _select_candidates(scores: torch.Tensor, boxes: torch.Tensor,
     their scores with those at or below score_thresh set to -1e30.
 
     Returns cand_boxes (B, C-1, k, 4) and cand_sc (B, C-1, k).
+
+    topk_impl keeps the JAX package's names:
+      * 'exact' and 'approx': a stable sort. The JAX 'approx'
+        (`lax.approx_max_k`) exists only on the TPU; the exact top-k is
+        within its contract.
+      * 'sparse' and 'sparse_pallas': `ops.topk.topk_sparse`, the kernel
+        csrc/topk.cu on CUDA and its plain version on the CPU. In the JAX
+        package 'sparse' is `topk_sparse_xla`, an XLA formulation of the
+        same function that was faster on the TPU than its Pallas kernel;
+        it has no separate counterpart here. Entries at or below
+        score_thresh come back as padding, which the filter below turns
+        into the same -1e30 the exact top-k gives them, so the
+        detections are bit-equal to 'exact'.
     """
-    if topk_impl != "exact":
-        raise NotImplementedError(
-            f"topk_impl={topk_impl!r} comes in {_LATER}; only 'exact' is "
-            "ported")
     b, a, c = scores.shape
     k = min(config.topk_candidates, a)
     fg_scores = scores[..., 1:].transpose(1, 2)  # (B, C-1, A)
-    top_sc, top_idx = _sorted_topk(fg_scores, k)
+    if topk_impl in ("exact", "approx"):
+        top_sc, top_idx = _sorted_topk(fg_scores, k)
+    elif topk_impl in ("sparse", "sparse_pallas"):
+        slots = max(8, -(-k // 128))
+        top_sc, top_idx = topk_sparse(fg_scores.contiguous(), k,
+                                      config.score_thresh, slots)
+    else:
+        raise ValueError("topk_impl must be 'exact', 'approx', 'sparse' or "
+                         f"'sparse_pallas', got {topk_impl!r}")
     cand_boxes = _gather_rows(
         boxes, top_idx.reshape(b, -1), gather_impl).reshape(b, c - 1, k, 4)
     # score-threshold filter, strict >
@@ -241,11 +270,22 @@ def _postprocess_reference_core(
     out_labels = torch.where(valid, (out_idx // k).to(torch.int32) + 1,
                              torch.zeros_like(out_idx, dtype=torch.int32))
     out_scores = torch.where(valid, out_scores, zero)
-    if d2 < d:
-        out_boxes = F.pad(out_boxes, (0, 0, 0, d - d2))
-        out_labels = F.pad(out_labels, (0, d - d2))
-        out_scores = F.pad(out_scores, (0, d - d2))
-        valid = F.pad(valid, (0, d - d2))
+    return _pad_and_rescale(out_boxes, out_scores, out_labels, valid, config,
+                            original_sizes)
+
+
+def _pad_and_rescale(out_boxes: torch.Tensor, out_scores: torch.Tensor,
+                     out_labels: torch.Tensor, valid: torch.Tensor,
+                     config: SSDConfig, original_sizes: Optional[torch.Tensor]
+                     ) -> Dict[str, torch.Tensor]:
+    """Pad the detections below to detections_per_img and rescale the
+    boxes to the original image sizes, when given."""
+    pad = config.detections_per_img - valid.shape[1]
+    if pad > 0:
+        out_boxes = F.pad(out_boxes, (0, 0, 0, pad))
+        out_labels = F.pad(out_labels, (0, pad))
+        out_scores = F.pad(out_scores, (0, pad))
+        valid = F.pad(valid, (0, pad))
 
     if original_sizes is not None:
         h, w = config.size
@@ -258,6 +298,161 @@ def _postprocess_reference_core(
 
     return {"boxes": out_boxes, "scores": out_scores,
             "labels": out_labels, "valid": valid}
+
+
+# Per-image live-candidate capacities of the fused path, tried smallest
+# first per batch (the JAX package's values and reasons, detection.py:300).
+_FUSED_TIERS = (1024, 2048)
+# 128-score chunk budget per image (detection.py:315)
+_FUSED_SLOTS = 192
+
+
+def _fused_capacity(scores: torch.Tensor, config: SSDConfig) -> Optional[int]:
+    """The fused path's guards for one batch of (B, A, C) scores.
+
+    Returns the smallest tier R that holds every image's live count (the
+    scores above score_thresh), or None when the batch must take the
+    reference pipeline: some image holds more than the largest tier, or
+    its live entries span more than the chunk budget. Two numbers,
+    (max_live, chunk_bad), come back to the host: the one device-to-host
+    sync of the fused path, in place of the JAX `lax.switch`.
+    """
+    b, a, c = scores.shape
+    n = (c - 1) * a
+    n_chunks = -(-n // 128)
+    slots = min(_FUSED_SLOTS, n_chunks)
+    tiers = sorted({min(max(t, config.detections_per_img), n, slots * 128)
+                    for t in _FUSED_TIERS})
+    live = (scores[..., 1:].transpose(1, 2) > config.score_thresh).reshape(b, n)
+    chunk_has = F.pad(live, (0, n_chunks * 128 - n)).reshape(
+        b, n_chunks, 128).any(dim=2)
+    max_live, chunk_bad = torch.stack([
+        live.sum(dim=1).amax(),
+        (chunk_has.sum(dim=1) > slots).any().long()]).tolist()
+    if chunk_bad:
+        return None
+    return next((t for t in tiers if max_live <= t), None)
+
+
+def _fused_candidates(scores: torch.Tensor, all_boxes: torch.Tensor,
+                      config: SSDConfig, r: int, gather_impl: str
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                 torch.Tensor]:
+    """The top r live entries of each image, as one NMS problem per image.
+
+    Returns the class-offset boxes (B, r, 4) and scores (B, r) of the NMS
+    problem (dead and capped entries at -1e30), the candidates' own boxes
+    (B, r, 4) and their 0-based foreground classes (B, r).
+    """
+    b, a, c = scores.shape
+    n = (c - 1) * a
+    n_chunks = -(-n // 128)
+    n_pad = n_chunks * 128
+    slots = min(_FUSED_SLOTS, n_chunks)
+    cap = min(config.topk_candidates, a)
+    dev = scores.device
+    neg = torch.tensor(_NEG_INF, dtype=scores.dtype, device=dev)
+
+    fg = scores[..., 1:].transpose(1, 2)                  # (B, C-1, A)
+    flat = torch.where(fg > config.score_thresh, fg, neg).reshape(b, n)
+    grouped = F.pad(flat, (0, n_pad - n), value=_NEG_INF).reshape(
+        b, n_chunks, 128)
+    chunk_has = (grouped > _NEG_INF).any(dim=2)           # (B, n_chunks)
+    chunk_ids = torch.arange(n_chunks, dtype=torch.int64, device=dev)
+    ids = torch.where(chunk_has, chunk_ids[None], n_chunks)
+    sel = torch.sort(ids, dim=1).values[:, :slots]        # ascending
+    sel_c = sel.clamp(max=n_chunks - 1)
+    g = torch.gather(grouped, 1, sel_c[:, :, None].expand(-1, -1, 128))
+    g = torch.where((sel < n_chunks)[:, :, None], g, neg)
+    lanes = torch.arange(128, dtype=torch.int64, device=dev)
+    pos_full = (sel_c[:, :, None] * 128 + lanes).reshape(b, slots * 128)
+    # stable descending sort: ties keep ascending slot order, which is
+    # ascending global position (sel is ascending)
+    sc, order = torch.sort(g.reshape(b, slots * 128), dim=1,
+                           descending=True, stable=True)
+    sc = sc[:, :r]
+    pos = torch.gather(pos_full, 1, order[:, :r]).clamp(max=n - 1)
+    cls = pos // a                                        # 0-based fg class
+    boxes = _gather_rows(all_boxes, pos % a, gather_impl)  # (B, r, 4)
+
+    # per-class rank: a stable sort by class keeps each class's candidates
+    # in score order; rank = place - start of the class's segment
+    cls_s, pos_s = torch.sort(cls, dim=1, stable=True)
+    place = torch.arange(r, dtype=torch.int64, device=dev)[None].expand(b, r)
+    boundary = torch.ones_like(cls_s, dtype=torch.bool)
+    boundary[:, 1:] = cls_s[:, 1:] != cls_s[:, :-1]
+    seg_start = torch.cummax(torch.where(boundary, place, 0), dim=1).values
+    rank = torch.empty_like(pos_s).scatter_(1, pos_s, place - seg_start)
+    valid = (sc > config.score_thresh) & (rank < cap)
+
+    # class-offset trick: boxes of different classes never overlap
+    offset = float(max(config.size)) + 2.0
+    off = boxes + (cls.to(torch.float32) * offset)[..., None]
+    return off, torch.where(valid, sc, neg), boxes, cls
+
+
+def _postprocess_fused(
+    scores: torch.Tensor,
+    all_boxes: torch.Tensor,
+    config: SSDConfig,
+    original_sizes: Optional[torch.Tensor],
+    nms_impl: str,
+    gather_impl: str,
+) -> Dict[str, torch.Tensor]:
+    """Trained-model serving fast path: one candidate set per image.
+
+    The counterpart of the JAX `_postprocess_fused` (detection.py:320),
+    step for step:
+
+      1. guards (`_fused_capacity`): the live count of every image must
+         fit a tier R, and its live 128-wide chunks of the flattened
+         (C-1) * A row the chunk budget; otherwise the batch takes the
+         reference pipeline (exact top-k), so the result is exact on
+         every input. Random weights are dense and always fall back;
+      2. (`_fused_candidates`) sort the live chunk ids ascending, gather
+         the first `slots` chunks, and take the top R of the gathered
+         scores by a stable sort that carries each entry's global
+         position: ascending chunks give ascending positions, so ties fall
+         in the reference's order;
+      3. the per-class rank from a stable sort by class and a cummax
+         drops what the reference's per-class topk_candidates cap drops;
+      4. gather the R candidates' boxes (csrc/gather.cu on CUDA) and run
+         ONE class-offset NMS problem per image (csrc/nms.cu): boxes
+         shifted by class * (max(size) + 2) never overlap across classes,
+         so the keep set is the reference's class-wise one;
+      5. top detections_per_img of the kept scores and the final gather.
+
+    The JAX `lax.switch` over the tiers becomes one host read per batch
+    in `_fused_capacity`: the branch is chosen in Python. Each batch
+    counts one in `_postprocess_fused.branches` under 'tier_<R>' or
+    'fallback'. Either branch launches one NMS and two gathers.
+    """
+    r = _fused_capacity(scores, config)
+    counts = _postprocess_fused.branches
+    if r is None:
+        counts["fallback"] += 1
+        return _postprocess_reference_core(
+            scores, all_boxes, config, original_sizes, nms_impl, "exact",
+            gather_impl)
+    counts[f"tier_{r}"] += 1
+    off, nms_sc, boxes, cls = _fused_candidates(scores, all_boxes, config, r,
+                                                gather_impl)
+    keep = _nms_keep(off, nms_sc, config, nms_impl)       # (B, R)
+    neg = torch.tensor(_NEG_INF, dtype=nms_sc.dtype, device=nms_sc.device)
+    out_sc, oidx = _sorted_topk(torch.where(keep, nms_sc, neg),
+                                min(config.detections_per_img, r))
+    valid_out = out_sc > _NEG_INF / 2
+    zero = torch.zeros((), dtype=boxes.dtype, device=boxes.device)
+    out_boxes = torch.where(valid_out[..., None],
+                            _gather_rows(boxes, oidx, gather_impl), zero)
+    out_labels = torch.where(valid_out, torch.gather(cls, 1, oidx) + 1,
+                             0).to(torch.int32)
+    out_scores = torch.where(valid_out, out_sc, zero)
+    return _pad_and_rescale(out_boxes, out_scores, out_labels, valid_out,
+                            config, original_sizes)
+
+
+_postprocess_fused.branches = collections.Counter()
 
 
 @dataclasses.dataclass

@@ -36,6 +36,7 @@ def _port_sources():
 def test_import_pulls_in_no_jax():
     code = ("import demonet_tpu_torch, demonet_tpu_torch.models.builders, "
             "demonet_tpu_torch.engine.evaluate, "
+            "demonet_tpu_torch.ops.fused_block, "
             "demonet_tpu_torch.utils.weights; import sys; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'demonet_tpu', 'triton')]; "

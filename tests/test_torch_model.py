@@ -246,12 +246,39 @@ def test_predict_step_equals_detector_predict(ref):
 
 
 def test_unported_modes_raise(ref):
+    """The JAX package's TPU kernel routes have no port: nms_impl 'pallas'
+    and 'xla' name the Pallas kernel and the XLA loop."""
     pd = ref["pd"]
     images = torch.from_numpy(_images(6, np.uint8))
-    for kwargs in ({"impl": "fused"}, {"topk_impl": "sparse"},
-                   {"topk_impl": "approx"}):
-        step = make_predict_step(pd, **kwargs)
-        with pytest.raises(NotImplementedError, match="later slice"):
-            step(pd.model, images)
-    with pytest.raises(ValueError, match="nms_impl"):
-        make_predict_step(pd, nms_impl="pallas")(pd.model, images)
+    for nms_impl in ("pallas", "xla"):
+        with pytest.raises(ValueError, match="nms_impl"):
+            make_predict_step(pd, nms_impl=nms_impl)(pd.model, images)
+
+
+@pytest.mark.parametrize("kwargs,match", [
+    ({"impl": "bogus"}, "impl"),
+    ({"topk_impl": "bogus"}, "topk_impl"),
+    ({"impl": "fused", "nms_impl": "bogus"}, "nms_impl"),
+], ids=["impl", "topk_impl", "fused-nms_impl"])
+def test_unknown_modes_raise(ref, kwargs, match):
+    pd = ref["pd"]
+    images = torch.from_numpy(_images(6, np.uint8))
+    with pytest.raises(ValueError, match=match):
+        make_predict_step(pd, **kwargs)(pd.model, images)
+
+
+@pytest.mark.parametrize("kwargs", [
+    {"impl": "fused"}, {"topk_impl": "sparse"},
+    {"topk_impl": "sparse_pallas"}, {"topk_impl": "approx"},
+], ids=["fused", "sparse", "sparse-kernel", "approx"])
+def test_serving_modes_equal_reference_step(ref, kwargs):
+    """Every serving mode of the predict step gives the reference's
+    detections, bit for bit, on the same images."""
+    pd = ref["pd"]
+    images = torch.from_numpy(_images(7, np.uint8))
+    sizes = torch.tensor([[100, 200], [64, 64]], dtype=torch.int32)
+    want = make_predict_step(pd)(pd.model, images, sizes)
+    got = make_predict_step(pd, **kwargs)(pd.model, images, sizes)
+    assert want["valid"].any()
+    for key in want:
+        assert torch.equal(got[key], want[key]), key
