@@ -18,10 +18,20 @@ the model does not wire in. The script prints one JSON line per phase:
   kernel_*     each hand-written kernel against its plain PyTorch version
                on the main paths' inputs and shapes at B = 32, and edge
                cases: NMS over P = 32 * 90 problems of K = 300 and over
-               P = 32 class-offset problems of K = 1,024 and 2,048; row
+               P = 32 class-offset problems of K = 1,024 and 2,048 (trained
+               and random weights, and random weights' best candidates with
+               none invalid), each in the launch shape the wrapper
+               picks by K (the reference shape in the tiled launch too,
+               called past the wrapper), edge cases at their own K and
+               padded to K = 576, and chains and IoU-at-threshold pairs
+               across the mask's 64-bit word boundaries at K = 63 ...
+               1,024 (block launch up to 512, tiled above); row
                gathers 3,234 -> 27,000 and 27,000 -> 300 rows, and
                3,234 -> R and R -> 300 rows; the sparse top-k over
-               P = 32 * 90 rows of A = 3,234; the fused block on blocks
+               P = 32 * 90 rows of A = 3,234 (trained, random weights,
+               synthetic, and dense edge rows: ties at the k-th value,
+               k - 1, k and k + 1 live entries, one exponent bin), with
+               the rows of each kernel branch; the fused block on blocks
                0-2. Bit-equal (the fused block: within its tolerance) or
                fail
   main_path_*  4 requests of 32 images per mode; launch counts reset just
@@ -36,8 +46,10 @@ the model does not wire in. The script prints one JSON line per phase:
                path's host read
   trace_b128   where the device time of a b128 predict goes, per mode
 
-then the `kernels` line (time, bound, plain and library time of each
-kernel), the card line from nvidia-smi, and the last line
+then `previous_design` (K1's and K3's times before their redesign:
+constants, not measured in this run), the `kernels` line (time, bound,
+plain and library time of each kernel, all from this run), the card line
+from nvidia-smi, and the last line
 {"ok": true, "device": {...}}. Any failed check raises, and the exit code
 is not 0. Without a CUDA device it exits with 2 before printing anything.
 """
@@ -59,6 +71,14 @@ _FP32_OPS_PER_S = 67e12
 _OPS_PER_IOU = 14
 # the sparse top-k's arguments on the main path (detection.py)
 _TOPK_K, _TOPK_SLOTS = 300, 8
+# K1's and K3's times before their redesign (ms, torch.profiler device
+# time, b32: NMS with one block per problem and a barrier per kept
+# candidate, top-k sorting each dense row whole), measured by an earlier
+# version of this script on an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md
+# §6). Constants: printed on their own line, never in the `kernels` line
+_PREVIOUS_MS = {"nms_trained": 0.0358, "nms_random": 0.1473,
+           "nms_fused_K1024": 0.2791, "nms_fused_K2048": 0.3464,
+           "topk_trained": 0.1293, "topk_random": 0.6857}
 # the fused block against its plain version: |kernel - plain| <= atol +
 # rtol * |plain|. Both sum the same fp32 products in another order (fmaf
 # in the kernel, cuDNN with TF32 off in the plain version), over at most
@@ -176,6 +196,22 @@ def fused_shapes(det, cand, r):
             "final": (boxes.contiguous(), final_idx)}
 
 
+def dense_fused_problem(cand, r, offset):
+    """A fused-path NMS problem with every candidate valid: each image's r
+    best (class, anchor) scores, uncapped, sorted, their boxes shifted by
+    class * offset as detection.py's class-offset boxes are."""
+    import torch
+
+    scores, all_boxes = cand["scores"], cand["boxes"]
+    b, a, _ = scores.shape
+    fg = scores[..., 1:].transpose(1, 2).reshape(b, -1)
+    sc, flat = torch.sort(fg, dim=1, descending=True, stable=True)
+    sc, flat = sc[:, :r].contiguous(), flat[:, :r]
+    boxes = torch.gather(all_boxes, 1, (flat % a)[..., None].expand(-1, -1, 4))
+    boxes = boxes + ((flat // a) * offset).to(boxes.dtype)[..., None]
+    return boxes.contiguous(), sc
+
+
 def nms_work(keep, scores, thr):
     """Bytes and IoU tests the greedy NMS needs on these inputs: every
     score read, the boxes of valid candidates read, the mask written; a
@@ -282,6 +318,82 @@ def live_chunk_counts(rows, thresh):
     return live.reshape(p, n_chunks, 128).any(dim=2).sum(dim=1)
 
 
+def topk_branches(rows, thresh, k, slots):
+    """Rows per branch of csrc/topk.cu: empty (no live chunk), compact (at
+    most `slots` live chunks), select (more); of the select rows, those
+    with at most k live entries skip the radix passes."""
+    chunks = live_chunk_counts(rows, thresh)
+    live = (rows > thresh).sum(dim=1)
+    sel = chunks > slots
+    return {"rows": rows.shape[0], "rows_empty": int((chunks == 0).sum()),
+            "rows_compact": int(((chunks > 0) & ~sel).sum()),
+            "rows_select": int(sel.sum()),
+            "rows_select_radix": int((sel & (live > k)).sum()),
+            "live_chunks_max": int(chunks.max()),
+            "live_entries_max": int(live.max())}
+
+
+def spread_topk_rows(p, a, thresh, k, case, seed):
+    """Edge rows for the select branch, every row's live entries spread
+    over all chunks: `tie_at_kth` (40 entries above one value held by
+    600), `live_k_minus_1`/`live_k`/`live_k_plus_1` (that many live),
+    `one_exponent_bin` (every score in [0.5, 0.5 + 2**-8))."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.rand((p, a), generator=gen) * (thresh * 0.9)
+    n_chunks = -(-a // 128)
+    if case == "one_exponent_bin":
+        ulps = torch.randint(0, 2**15, (p, a), generator=gen,
+                             dtype=torch.int32)
+        half = torch.tensor(0.5).view(torch.int32)
+        return (half + ulps).view(torch.float32)
+    n = {"tie_at_kth": 640, "live_k_minus_1": k - 1, "live_k": k,
+         "live_k_plus_1": k + 1}[case]
+    for r in range(p):
+        first = (torch.arange(n_chunks) * 128 + torch.randint(
+            0, 128, (n_chunks,), generator=gen)).clamp(max=a - 1)
+        rest = torch.randperm(a, generator=gen)
+        rest = rest[~torch.isin(rest, first)]
+        cols = torch.cat([first, rest])[:n]
+        if case == "tie_at_kth":
+            x[r, cols[:40]] = 0.75 + torch.rand(40, generator=gen) * 0.2
+            x[r, cols[40:]] = 0.5
+        else:
+            vals = thresh * 2 + torch.rand(n, generator=gen) * 0.9
+            vals[: n // 4] = vals[0]        # a run of ties
+            x[r, cols] = vals
+    return x
+
+
+def word_boundary_problems(k, seed=11):
+    """Three NMS problems of K candidates: random boxes in [0, 100]^2, and
+    at each mark m (64, and 512 and 576 where K allows: across 64-bit mask
+    word boundaries, in the tiled launch above K = 512) an identical-box
+    chain m - 3, m - 2, m and a pair m - 1, m + 1 at IoU 0.5 exactly, each
+    mark's boxes apart from the others'. Problem 0 is valid throughout, 1
+    and 2 have shorter valid prefixes. Returns boxes, scores and marks."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    centers = torch.rand((3, k, 2), generator=gen) * 100
+    wh = torch.rand((3, k, 2), generator=gen) * 40 + 2
+    boxes = torch.cat([centers - wh / 2, centers + wh / 2], dim=-1)
+    scores = torch.sort(torch.rand((3, k), generator=gen), dim=1,
+                        descending=True)[0]
+    marks = [min(64, k - 2)] + [m for m in (512, 576) if m + 1 < k]
+    for n, m in enumerate(marks):
+        d = 100.0 * n
+        for c in (m - 3, m - 2, m):
+            boxes[:, c] = torch.tensor([1000.0 + d, 1000.0, 1010.0 + d, 1010.0])
+        boxes[:, m - 1] = torch.tensor([2000.0 + d, 0.0, 2002.0 + d, 1.0])
+        if m + 1 < k:
+            boxes[:, m + 1] = torch.tensor([2000.0 + d, 0.0, 2001.0 + d, 1.0])
+    scores[1, marks[-1] + 2:] = -1e30
+    scores[2, k // 2:] = -1e30
+    return boxes, scores, marks
+
+
 def main():
     import torch
 
@@ -309,7 +421,12 @@ def main():
         gather_rows_batch,
         gather_rows_batch_plain,
     )
-    from demonet_tpu_torch.ops.nms import nms_keep_batch, nms_keep_batch_plain
+    from demonet_tpu_torch.ops.nms import (
+        _kernel as nms_kernel,
+        launch_shape,
+        nms_keep_batch,
+        nms_keep_batch_plain,
+    )
     from demonet_tpu_torch.ops.topk import topk_sparse, topk_sparse_plain
     from demonet_tpu_torch.utils.weights import load_jax_variables
 
@@ -369,32 +486,64 @@ def main():
         for name, det in (("trained", trained), ("random", random_init)):
             out = det.model(preprocess(batches[0], det.config, resize=False))
             regimes[name] = (out, head_to_candidates(det, out))
+    def nms_tiled(boxes, sc, t):
+        """K1's tiled launch at any K, called past the wrapper (which takes
+        it only above K = 512) and not counted in `launches`: checks it at
+        the reference shape and times the wrapper's choice of launch."""
+        p, k, _ = boxes.shape
+        keep = torch.empty((p, k), dtype=torch.bool, device=dev)
+        mask = torch.empty((p, k, -(-k // 64)), dtype=torch.int64, device=dev)
+        _build.check(nms_kernel()(
+            boxes.data_ptr(), sc.data_ptr(), keep.data_ptr(), mask.data_ptr(),
+            p, k, t, thr, 2, torch.cuda.current_stream().cuda_stream),
+            "nms_keep_batch, tiled launch")
+        return keep
+
+    def check_nms(boxes, sc, t, what, tiled_too=False):
+        """The kernel (and its tiled launch, if asked) against the plain
+        version; returns the plain keep mask and the wrapper's launch."""
+        p_keep = nms_keep_batch_plain(boxes, sc, t, thr)
+        shape = launch_shape(boxes.shape[1])
+        got = {shape: nms_keep_batch(boxes, sc, t, thr)}
+        if tiled_too:
+            got["tiled"] = nms_tiled(boxes, sc, t)
+        torch.cuda.synchronize()
+        for name, k_keep in got.items():
+            check(torch.equal(k_keep, p_keep),
+                  f"NMS kernel ({name} launch) != plain on {what} "
+                  f"({int((k_keep != p_keep).sum())} entries differ)")
+        return p_keep, shape
+
     for name, (_, cand) in regimes.items():
         boxes, sc = cand["cand_boxes"], cand["cand_sc"]
-        k_keep = nms_keep_batch(boxes, sc, iou, thr)
-        p_keep = nms_keep_batch_plain(boxes, sc, iou, thr)
-        torch.cuda.synchronize()
-        check(torch.equal(k_keep, p_keep),
-              f"NMS kernel != plain on the {name} candidates "
-              f"({int((k_keep != p_keep).sum())} entries differ)")
+        keep, shape = check_nms(boxes, sc, iou, f"the {name} candidates",
+                                tiled_too=True)
         emit({"phase": "kernel_nms", "regime": name,
               "problems": list(sc.shape), "bit_equal": True,
-              "valid": int((sc > thr).sum()), "kept": int(k_keep.sum())})
+              "launch": shape, "tiled_launch_bit_equal": True,
+              "valid": int((sc > thr).sum()), "kept": int(keep.sum())})
 
-    # the fused path's shapes: one class-offset problem per image
+    # the fused path's shapes: one class-offset problem per image, from
+    # the trained model's scores and the random-weight model's (whose
+    # per-class cap leaves 300 valid an image), and the random-weight
+    # model's best candidates uncapped: every candidate valid
     fused_in = {r: fused_shapes(trained, regimes["trained"][1], r)
                 for r in (1024, 2048)}
-    for r, f in fused_in.items():
-        off, sc = f["nms"]
-        k_keep = nms_keep_batch(off, sc, iou, thr)
-        p_keep = nms_keep_batch_plain(off, sc, iou, thr)
-        torch.cuda.synchronize()
-        check(torch.equal(k_keep, p_keep),
-              f"NMS kernel != plain on the fused K={r} problems "
-              f"({int((k_keep != p_keep).sum())} entries differ)")
-        emit({"phase": "kernel_nms", "regime": "trained, fused path",
-              "problems": list(sc.shape), "bit_equal": True,
-              "valid": int((sc > thr).sum()), "kept": int(k_keep.sum())})
+    fused_random = {r: fused_shapes(random_init, regimes["random"][1], r)
+                    for r in (1024, 2048)}
+    offset = max(cfg.size) + 2
+    fused_dense = {r: dense_fused_problem(regimes["random"][1], r, offset)
+                   for r in (1024, 2048)}
+    for regime, shapes in (("trained", fused_in), ("random", fused_random),
+                           ("random all valid", fused_dense)):
+        for r, f in shapes.items():
+            off, sc = f if regime == "random all valid" else f["nms"]
+            keep, shape = check_nms(off, sc, iou,
+                                    f"the {regime} fused K={r} problems")
+            emit({"phase": "kernel_nms", "regime": f"{regime}, fused path",
+                  "problems": list(sc.shape), "bit_equal": True,
+                  "launch": shape,
+                  "valid": int((sc > thr).sum()), "kept": int(keep.sum())})
 
     edge = {
         "all_invalid": ([[[0, 0, 10, 10]] * 4], [[-1e30] * 4], 0.5),
@@ -410,13 +559,43 @@ def main():
               "identical_chain": [True] + [False] * 5,
               "iou_at_threshold": [True, True],
               "iou_below_threshold": [True, False]}
+    # each edge case at its own K (block launch) and padded with invalid
+    # candidates to K = 576 (tiled launch)
+    k_pad = 576
+    edge_launches = set()
     for name, (bx, sc, t) in edge.items():
         bx = torch.tensor(bx, dtype=torch.float32, device=dev)
         sc = torch.tensor(sc, dtype=torch.float32, device=dev)
-        got = nms_keep_batch(bx, sc, t, thr)
-        check(torch.equal(got, nms_keep_batch_plain(bx, sc, t, thr))
-              and got[0].tolist() == expect[name], f"NMS edge case {name}")
-    emit({"phase": "kernel_nms_edges", "cases": sorted(edge), "ok": True})
+        n = sc.shape[1]
+        padded = (torch.cat([bx, bx.new_zeros((1, k_pad - n, 4))], 1),
+                  torch.cat([sc, sc.new_full((1, k_pad - n), -1e30)], 1))
+        for bx_k, sc_k in ((bx, sc), padded):
+            k_e = sc_k.shape[1]
+            keep, shape = check_nms(bx_k.contiguous(), sc_k.contiguous(), t,
+                                    f"edge case {name}, K={k_e}")
+            edge_launches.add(shape)
+            check(keep[0].tolist() == expect[name] + [False] * (k_e - n),
+                  f"NMS edge case {name}, K={k_e}")
+    # the mask's 64-bit words: chains and pairs at IoU = threshold across
+    # word boundaries, in the block launch (K <= 512) and the tiled one
+    boundary = []
+    for k_b in (63, 64, 65, 128, 300, 576, 1024):
+        bx, sc, marks = word_boundary_problems(k_b)
+        bx, sc = bx.to(dev), sc.to(dev)
+        for t in (0.5, 0.49):
+            keep, shape = check_nms(bx, sc, t, f"word-boundary K={k_b} "
+                                    f"at {t}")
+            k0 = keep[0].tolist()
+            for m in marks:
+                pair_ok = m + 1 >= k_b or (k0[m - 1]
+                                           and k0[m + 1] == (t >= 0.5))
+                check(k0[m - 3] and not k0[m - 2] and not k0[m] and pair_ok,
+                      f"NMS word-boundary K={k_b} at {t}, candidate {m}: "
+                      "chain or pair wrong")
+        boundary.append({"k": k_b, "marks": marks, "launch": shape})
+    emit({"phase": "kernel_nms_edges", "cases": sorted(edge),
+          "edge_k": ["own", k_pad], "launches": sorted(edge_launches),
+          "word_boundary": boundary, "ok": True})
 
     cand = regimes["trained"][1]
     adv = torch.rand((b, 27000, 4), generator=torch.Generator().manual_seed(1))
@@ -466,6 +645,10 @@ def main():
             levels=(0.25, 0.5, 0.75), seed=6),
         "random_weights": regimes["random"][1]["fg"].reshape(p_rows, a),
     }
+    for seed, case in enumerate(("tie_at_kth", "live_k_minus_1", "live_k",
+                                 "live_k_plus_1", "one_exponent_bin")):
+        topk_cases[case] = spread_topk_rows(p_rows, a, st, _TOPK_K, case,
+                                            seed=7 + seed)
     topk_rows = {}
     for name, rows in topk_cases.items():
         rows = rows.to(dev).contiguous()
@@ -477,18 +660,19 @@ def main():
               and torch.equal(k_idx, p_idx),
               f"top-k kernel != plain on {name} "
               f"({int((k_idx != p_idx).sum())} indices differ)")
-        chunks = live_chunk_counts(rows, st)
-        topk_rows[name] = {
-            "rows": p_rows, "rows_empty": int((chunks == 0).sum()),
-            "rows_compact": int(((chunks > 0) & (chunks <= _TOPK_SLOTS)).sum()),
-            "rows_whole_row": int((chunks > _TOPK_SLOTS).sum()),
-            "live_chunks_max": int(chunks.max())}
+        topk_rows[name] = topk_branches(rows, st, _TOPK_K, _TOPK_SLOTS)
         emit({"phase": "kernel_topk", "case": name, "shape": [p_rows, a],
               "k": _TOPK_K, "slots": _TOPK_SLOTS, "bit_equal": True,
               **topk_rows[name]})
-    check(topk_rows["chunks_0_8_9"]["rows_whole_row"] == p_rows // 3
-          and topk_rows["synthetic_within_slots"]["rows_whole_row"] == 0,
-          f"top-k cases do not cover both branches: {topk_rows}")
+    spread = ("tie_at_kth", "live_k_minus_1", "live_k", "live_k_plus_1",
+              "one_exponent_bin")
+    check(topk_rows["chunks_0_8_9"]["rows_select"] == p_rows // 3
+          and topk_rows["synthetic_within_slots"]["rows_select"] == 0
+          and all(topk_rows[c]["rows_select"] == p_rows for c in spread)
+          and all(topk_rows[c]["rows_select_radix"] == (
+              p_rows if c in ("tie_at_kth", "live_k_plus_1",
+                              "one_exponent_bin") else 0) for c in spread),
+          f"top-k cases do not cover every branch: {topk_rows}")
 
     # fused inverted-residual block: blocks 0-2 of the trained trunk
     trunk = trained.model.extractor.trunk
@@ -581,6 +765,13 @@ def main():
             worst = max(worst, box_diff)
         return worst
 
+    k_ref = regimes["trained"][1]["cand_sc"].shape[1]
+
+    def nms_launches(taken):
+        """K1's launch shape on each fused-path branch taken."""
+        return {br: launch_shape(int(br[len("tier_"):]) if br.startswith(
+            "tier_") else k_ref) for br in sorted(set(taken))}
+
     launches_by_path = {}
     dets, counts, _ = drive(make_predict_step(trained))
     check(counts == {"nms_keep_batch": 4, "gather_rows_batch": 8,
@@ -589,7 +780,7 @@ def main():
           "gathers per batch")
     launches_by_path["reference"] = counts
     emit({"phase": "main_path", "mode": "reference", "batches": len(batches),
-          "batch": b, "launches": counts,
+          "batch": b, "launches": counts, "nms_launch": launch_shape(k_ref),
           "valid_detections": check_detections(dets)})
 
     dets, counts, taken = drive(make_predict_step(trained, impl="fused"))
@@ -610,6 +801,7 @@ def main():
     box_diff_r = same_head_outputs(random_init, batches[:1], impl="fused")
     emit({"phase": "main_path_fused", "batches": len(batches), "batch": b,
           "launches": counts, "branches": fused_branches,
+          "nms_launch": nms_launches(fused_branches),
           "valid_detections": n_valid,
           "vs_reference_same_head": "valid/scores/labels bit-equal",
           "max_box_diff_vs_reference": box_diff,
@@ -626,7 +818,7 @@ def main():
     box_diff = same_head_outputs(trained, batches, topk_impl="sparse_pallas")
     check(box_diff == 0.0, "sparse top-k boxes != reference")
     emit({"phase": "main_path_sparse_topk", "batches": len(batches),
-          "batch": b, "launches": counts,
+          "batch": b, "launches": counts, "nms_launch": launch_shape(k_ref),
           "valid_detections": check_detections(dets),
           "vs_exact_topk_same_head": "bit-equal"})
 
@@ -696,18 +888,22 @@ def main():
     def by_path(name):
         return {p: c[name] for p, c in launches_by_path.items() if c[name]}
 
-    def nms_row(bx, sc, plain_iters):
+    def nms_row(bx, sc, plain_iters, tiled_too=False):
         keep = nms_keep_batch(bx, sc, iou, thr)
         nbytes, ops = nms_work(keep, sc, thr)
         bms, by = bound(nbytes, ops)
         k_t = timed(lambda: nms_keep_batch(bx, sc, iou, thr), 50)
         p_t = timed(lambda: nms_keep_batch_plain(bx, sc, iou, thr),
                     plain_iters, 1)
-        return {"shape": list(sc.shape), "ms": k_t["ms"],
-                "plain_ms": p_t["ms"], "bound_ms": bms, "bound_by": by,
-                "library_ms": None, "bytes": nbytes, "ops": ops,
-                "event_ms": k_t["event_ms"], "plain_event_ms": p_t["event_ms"],
-                "ms_from": k_t["ms_from"]}
+        row = {"shape": list(sc.shape), "launch": launch_shape(sc.shape[1]),
+               "ms": k_t["ms"], "plain_ms": p_t["ms"], "bound_ms": bms,
+               "bound_by": by, "library_ms": None, "bytes": nbytes,
+               "ops": ops, "event_ms": k_t["event_ms"],
+               "plain_event_ms": p_t["event_ms"], "ms_from": k_t["ms_from"]}
+        if tiled_too:   # the launch the wrapper does not take at this K
+            row["tiled_launch_ms"] = timed(lambda: nms_tiled(bx, sc, iou),
+                                           50)["ms"]
+        return row
 
     def gather_row(table, idx):
         idx64 = idx.long()[..., None].expand(-1, -1, 4)
@@ -723,14 +919,20 @@ def main():
 
     tier_counts = {r: fused_branches.count(f"tier_{r}") for r in (1024, 2048)}
     rows = []
-    nms_rows = {name: nms_row(c["cand_boxes"], c["cand_sc"], 3)
+    nms_rows = {name: nms_row(c["cand_boxes"], c["cand_sc"], 3,
+                              tiled_too=True)
                 for name, (_, c) in regimes.items()}
     nms_fused = {}
     for r, f in fused_in.items():
-        nms_fused[f"K{r}"] = {**nms_row(*f["nms"], 2), "max_abs_err": 0.0,
+        nms_fused[f"K{r}"] = {**nms_row(*f["nms"], 2),
+                              "max_abs_err": 0.0,
                               "launches": tier_counts[r],
                               "launches_from": "fused path, batches on "
                                                f"tier {r}"}
+    for r, f in fused_random.items():
+        nms_fused[f"K{r}_random_weights"] = nms_row(*f["nms"], 1)
+    for r, f in fused_dense.items():
+        nms_fused[f"K{r}_random_all_valid"] = nms_row(*f, 1)
     main = nms_rows["trained"]
     rows.append({
         "name": "nms_keep_batch", "route": "cuda",
@@ -769,7 +971,7 @@ def main():
         "per_predict": "candidate + final gather", "calls": calls,
         "fused_path_shapes": g_fused})
 
-    def topk_row(rows_in):
+    def topk_row(rows_in, scores_bac):
         nbytes, ops = topk_work(rows_in, _TOPK_K, st)
         bms, by = bound(nbytes, ops)
         masked = torch.where(rows_in > st, rows_in,
@@ -779,13 +981,19 @@ def main():
         l_t = timed(lambda: torch.topk(rows_in, _TOPK_K, dim=-1), 20)
         s_t = timed(lambda: torch.sort(masked, dim=-1, descending=True,
                                        stable=True), 20)
-        return {"ms": k_t["ms"], "plain_ms": p_t["ms"], "bound_ms": bms,
-                "bound_by": by, "library_ms": l_t["ms"],
+        # the (B, C-1, A) copy of the (B, A, C) scores that detection.py
+        # hands the kernel
+        c_t = timed(lambda: scores_bac[..., 1:].transpose(1, 2).contiguous(),
+                    20)
+        return {"ms": k_t["ms"], "plain_ms": p_t["ms"], "bound_ms": bms, "bound_by": by,
+                "library_ms": l_t["ms"],
                 "library": "torch.topk(k=300) on the same rows",
-                "stable_sort_ms": s_t["ms"], "bytes": nbytes, "ops": ops,
-                "event_ms": k_t["event_ms"], "ms_from": k_t["ms_from"]}
+                "stable_sort_ms": s_t["ms"],
+                "fg_contiguous_copy_ms": c_t["ms"], "bytes": nbytes,
+                "ops": ops, "event_ms": k_t["event_ms"],
+                "ms_from": k_t["ms_from"]}
 
-    t_main = topk_row(topk_cases["trained"])
+    t_main = topk_row(topk_cases["trained"], regimes["trained"][1]["scores"])
     rows.append({
         "name": "topk_sparse", "route": "cuda",
         "source": "demonet_tpu_torch/csrc/topk.cu",
@@ -796,8 +1004,10 @@ def main():
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
         "shape": [p_rows, a], "k": _TOPK_K, "slots": _TOPK_SLOTS,
         "detail": t_main, "branches": topk_rows["trained"],
-        "dense_random_weights": {**topk_row(topk_cases["random_weights"]),
-                                 "branches": topk_rows["random_weights"]}})
+        "dense_random_weights": {
+            **topk_row(topk_cases["random_weights"],
+                       regimes["random"][1]["scores"]),
+            "branches": topk_rows["random_weights"]}})
 
     blocks = []
     for i in range(3):
@@ -901,6 +1111,11 @@ def main():
               "top_kernels_ms": [[k, t] for t, k in per_kernel[:10]],
               "seconds_so_far": time.perf_counter() - t_start})
 
+    emit({"phase": "previous_design", "constants": True,
+          "not_measured_in_this_run": True,
+          "what": "K1 and K3 device ms before their redesign, b32",
+          "source": "PERF.md section 6", "card": "NVIDIA H100 80GB HBM3, "
+          "700.00 W", "ms": _PREVIOUS_MS})
     emit({"kernels": rows})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

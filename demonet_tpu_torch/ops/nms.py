@@ -8,6 +8,18 @@ launches the kernel; on a CPU tensor it runs `nms_keep_batch_plain`, the
 plain PyTorch version of the same function, which the tests hold bit for
 bit against the JAX reference `jax.vmap(nms_mask)`.
 
+The kernel works on an IoU bitmask (bit j of row i: j > i overlaps i)
+swept in score order. It has two launch shapes, both exact: "block"
+(K <= 512; a block per problem computes the mask rows of the kept
+candidates only, as it walks the chain) and "tiled" (K <= 8,192; the
+whole mask in a device-memory scratch that the wrapper allocates, built
+by a grid over 64 x 64 tiles on every SM, then swept by one warp per
+problem). The wrapper takes the block launch up to K = 512, where there
+are many problems (the reference postprocess: P = B * 90, K = 300), and
+the tiled one above, where there are few long ones (the fused path:
+P = B, K = 1,024 or 2,048): `launch_shape(K)`. On the card, K above
+8,192 raises.
+
 The IoU is computed term by term as the reference writes it:
 inter = max(min(x2) - max(x1), 0) * max(min(y2) - max(y1), 0),
 union = area_j + area_i - inter, iou = inter / max(union, 1e-9), and a
@@ -22,6 +34,12 @@ import functools
 import torch
 
 from demonet_tpu_torch.ops import _build
+
+# mask rows of 64-bit words. The block launch holds a problem's boxes and
+# bitset in shared memory; the tiled one sweeps with 4 words a lane at most
+WORD = 64
+BLOCK_MAX_K = 512
+MAX_K = 8192
 
 
 def nms_keep_batch_plain(boxes: torch.Tensor, scores: torch.Tensor,
@@ -57,10 +75,15 @@ def nms_keep_batch_plain(boxes: torch.Tensor, scores: torch.Tensor,
 def _kernel():
     fn = _build.load("nms").nms_keep_batch
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
-                   ctypes.c_void_p]
+                   ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                   ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def launch_shape(k: int) -> str:
+    """The kernel's launch shape for problems of K candidates."""
+    return "block" if k <= BLOCK_MAX_K else "tiled"
 
 
 def nms_keep_batch(boxes: torch.Tensor, scores: torch.Tensor,
@@ -72,9 +95,9 @@ def nms_keep_batch(boxes: torch.Tensor, scores: torch.Tensor,
       boxes: (P, K, 4) float32 xyxy, score-sorted descending per problem.
       scores: (P, K) float32; entries <= score_threshold are padding.
 
-    Returns (P, K) bool. A CUDA tensor goes to the kernel `csrc/nms.cu`
-    (and counts one in `nms_keep_batch.launches`); a CPU tensor to
-    `nms_keep_batch_plain`.
+    Returns (P, K) bool. A CUDA tensor goes to the kernel `csrc/nms.cu`,
+    in the launch shape `launch_shape(K)`, and counts one in
+    `nms_keep_batch.launches`; a CPU tensor to `nms_keep_batch_plain`.
     """
     if boxes.ndim != 3 or boxes.shape[-1] != 4 \
             or scores.shape != boxes.shape[:2]:
@@ -97,11 +120,21 @@ def nms_keep_batch(boxes: torch.Tensor, scores: torch.Tensor,
     if boxes.data_ptr() % 16:
         raise ValueError("nms_keep_batch: boxes must be 16-byte aligned")
     p, k, _ = boxes.shape
+    if k > MAX_K:
+        raise ValueError(f"nms_keep_batch: K={k} exceeds the kernel's limit "
+                         f"of {MAX_K}")
+    shape = launch_shape(k)
     keep = torch.empty((p, k), dtype=torch.bool, device=boxes.device)
+    scratch = None
+    if shape == "tiled":   # the IoU bitmask: (P, K, ceil(K / 64)) words
+        scratch = torch.empty((p, k, -(-k // WORD)), dtype=torch.int64,
+                              device=boxes.device)
     with torch.cuda.device(boxes.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = _kernel()(boxes.data_ptr(), scores.data_ptr(), keep.data_ptr(),
-                         p, k, iou_threshold, score_threshold, stream)
+                         None if scratch is None else scratch.data_ptr(),
+                         p, k, iou_threshold, score_threshold,
+                         1 if shape == "block" else 2, stream)
     _build.check(code, "nms_keep_batch")
     nms_keep_batch.launches += 1
     return keep

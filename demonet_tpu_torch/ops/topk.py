@@ -19,8 +19,10 @@ The kernel and the plain version agree bit for bit on every entry,
 padding included. The JAX version's padding carries other in-range
 indices, and its whole-call fallback to `lax.top_k` returns the true
 below-threshold values there; the two differ only in those dead slots.
-The kernel decides per row whether the live 128-wide chunks fit in
-`slots` of them or the whole row is sorted, so it needs no fallback.
+The kernel decides per row: a row whose live 128-wide chunks fit in
+`slots` of them sorts those chunks; a denser row finds its k-th largest
+score by radix select, cuts the ties at it in ascending index order and
+sorts only the k it keeps. It needs no fallback.
 
 The JAX package's `topk_sparse_xla` is the same function written in XLA
 operations, faster than the Pallas kernel on the TPU; it has no separate
@@ -38,8 +40,8 @@ import torch
 from demonet_tpu_torch.ops import _build
 
 CHUNK = 128
-# the kernel's whole-row branch holds one row of at most this many scores
-# in shared memory (ssdlite320: A = 3,234)
+# the kernel holds one row of at most this many scores in registers, 16
+# per thread (ssdlite320: A = 3,234)
 MAX_ROW = 4096
 
 
@@ -74,7 +76,7 @@ def topk_sparse(scores: torch.Tensor, k: int, thresh: float,
       scores: (..., A) float32, A <= 4,096; contiguous on CUDA.
       k: entries per row, 1 <= k <= min(A, slots * 128).
       slots: 128-wide chunks the kernel's compact branch holds; a row
-        with more live chunks is sorted whole.
+        with more live chunks takes the radix select.
 
     Returns (..., k) float32 scores and (..., k) int32 indices. A CUDA
     tensor goes to the kernel `csrc/topk.cu` (and counts one in
@@ -92,7 +94,7 @@ def topk_sparse(scores: torch.Tensor, k: int, thresh: float,
         raise ValueError(f"topk_sparse: k={k} outside [1, A={a}]")
     if a > MAX_ROW:
         raise ValueError(f"topk_sparse: rows of A={a} exceed the kernel's "
-                         f"whole-row limit of {MAX_ROW}")
+                         f"row limit of {MAX_ROW}")
     if scores.device.type == "cpu":
         return topk_sparse_plain(scores, k, thresh)
     if scores.device.type != "cuda":

@@ -77,7 +77,7 @@ def test_sparse_topk_matches_jax_above_threshold(seed, frac):
 
 def test_sparse_topk_overflowing_rows_are_exact():
     """Dense scores: every row has more live chunks than slots (the
-    kernel sorts those rows whole; JAX falls back to lax.top_k)."""
+    kernel takes its radix select there; JAX falls back to lax.top_k)."""
     rng = np.random.default_rng(3)
     scores = rng.random((10, 700)).astype(np.float32)  # all above 1e-3
     sc, idx = _port(scores, 64, 1e-3, 2)
@@ -196,3 +196,126 @@ def test_core_topk_modes_bit_equal_to_jax_exact(regime, topk_impl):
         g = got[key].numpy()
         assert g.dtype == want[key].dtype, key
         np.testing.assert_array_equal(g, want[key], err_msg=key)
+
+
+# -- dense rows: the kernel's radix select and its tie cut -------------------
+#
+# Rows of A = 1,250 (10 chunks, the last partial) with k = 96 and slots = 4:
+# every case spreads its live entries over more than 4 chunks, so on the
+# card each row takes the select branch of csrc/topk.cu.
+_EDGE_A, _EDGE_K, _EDGE_SLOTS, _EDGE_THRESH = 1250, 96, 4, 1e-3
+
+
+def _spread_cols(rng, n, a=_EDGE_A):
+    """n >= 10 distinct columns, at least one in every 128-wide chunk."""
+    chunks = -(-a // 128)
+    first = np.minimum(np.arange(chunks) * 128 + rng.integers(0, 128, chunks),
+                       a - 1)
+    rest = rng.permutation(np.setdiff1d(np.arange(a), first))
+    return np.concatenate([first, rest])[:n]
+
+
+def _edge_topk_rows(case, p=6):
+    """(P, A) float32 rows of one edge case, made from a seed."""
+    rng = np.random.default_rng(40 + _TOPK_EDGES.index(case))
+    k, a, t = _EDGE_K, _EDGE_A, _EDGE_THRESH
+    rows = (rng.random((p, a)) * t * 0.9).astype(np.float32)
+    for r in range(p):
+        if case == "tie_at_kth":
+            # 600 entries at the k-th value, 40 above it: 56 ties kept
+            cols = _spread_cols(rng, 640 - r * 40)
+            rows[r, cols[:40]] = 0.75 + rng.random(40).astype(np.float32) * 0.2
+            rows[r, cols[40:]] = 0.5
+        elif case in ("live_k_minus_1", "live_k", "live_k_plus_1"):
+            n = k + {"live_k_minus_1": -1, "live_k": 0,
+                     "live_k_plus_1": 1}[case]
+            cols = _spread_cols(rng, n)
+            vals = rng.random(n).astype(np.float32) * 0.9 + 2 * t
+            vals[: n // 4] = vals[0]          # a run of ties
+            rows[r, cols] = vals
+        elif case == "one_exponent_bin":
+            # every score in [0.5, 0.5 + 2**-8): sign, exponent and the top
+            # mantissa bits alike, so the select works in its last passes
+            ulps = rng.integers(0, 2**15, a).astype(np.uint32)
+            rows[r] = (np.float32(0.5).view(np.uint32) + ulps).view(np.float32)
+        elif case == "dense_uniform":
+            rows[r] = rng.random(a).astype(np.float32)
+    return rows
+
+
+_TOPK_EDGES = ("tie_at_kth", "live_k_minus_1", "live_k", "live_k_plus_1",
+               "one_exponent_bin", "dense_uniform")
+
+
+def _order_key(x):
+    """The kernel's uint32 key of each float32, as int64: order-preserving,
+    -0.0 folded onto +0.0."""
+    u = x.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    u = torch.where(u == 0x80000000, torch.zeros_like(u), u)
+    return torch.where((u & 0x80000000) != 0, (~u) & 0xFFFFFFFF,
+                       u | 0x80000000)
+
+
+def _radix_select_topk(scores, k, thresh):
+    """Test-only model of csrc/topk.cu's select branch: radix select of the
+    k-th largest key (four 8-bit digits), the tie cut in index order, and a
+    sort of only the k kept entries; padding (-inf, 0)."""
+    p, a = scores.shape
+    dead = 0x007FFFFF                      # the key of -inf
+    out_sc = torch.full((p, k), float("-inf"))
+    out_idx = torch.zeros((p, k), dtype=torch.int32)
+    for r in range(p):
+        x = scores[r]
+        live = x > thresh
+        key = _order_key(x)
+        n_live = int(live.sum())
+        t_key, ties = dead, 0
+        if n_live > k:
+            prefix, pmask, ties = 0, 0, k
+            for shift in (24, 16, 8, 0):
+                part = live & ((key & pmask) == prefix)
+                digit = (key[part] >> shift) & 0xFF
+                hist = torch.bincount(digit, minlength=256)
+                at_or_above = hist.flip(0).cumsum(0).flip(0)
+                d = int(torch.nonzero(at_or_above >= ties).max())
+                ties -= int(at_or_above[d] - hist[d])
+                prefix |= d << shift
+                pmask |= 0xFF << shift
+            t_key = prefix
+        gt = live & (key > t_key)
+        eq = live & (key == t_key)
+        eq_rank = torch.cumsum(eq.to(torch.int64), 0) - eq.to(torch.int64)
+        cols = torch.nonzero(gt | (eq & (eq_rank < ties)))[:, 0]
+        assert cols.numel() == min(n_live, k)
+        vals = x[cols]
+        order = torch.sort(vals, descending=True, stable=True)[1]
+        out_sc[r, :cols.numel()] = vals[order]
+        out_idx[r, :cols.numel()] = cols[order].to(torch.int32)
+    return out_sc, out_idx
+
+
+@pytest.mark.parametrize("case", _TOPK_EDGES)
+def test_plain_topk_dense_edge_cases_match_jax(case):
+    rows = _edge_topk_rows(case)
+    sc, idx = _port(rows, _EDGE_K, _EDGE_THRESH, _EDGE_SLOTS)
+    live_chunks = (np.pad(rows > _EDGE_THRESH, ((0, 0), (0, 30)))
+                   .reshape(rows.shape[0], -1, 128).any(-1).sum(-1))
+    assert (live_chunks > _EDGE_SLOTS).all()  # the select branch, every row
+    _assert_contract(sc, idx, rows, _EDGE_K, _EDGE_THRESH, _EDGE_SLOTS)
+
+
+@pytest.mark.parametrize("case", _TOPK_EDGES + ("signed_zeros",))
+def test_radix_select_model_bit_equal_to_plain(case):
+    if case == "signed_zeros":
+        # below a negative threshold: -0.0 and +0.0 tie, negatives live
+        rng = np.random.default_rng(47)
+        rows = rng.choice(np.asarray([-0.0, 0.0, -0.5, 0.25, -1e-30, -2.0],
+                                     np.float32), (6, _EDGE_A))
+        thresh = -1.0
+    else:
+        rows, thresh = _edge_topk_rows(case), _EDGE_THRESH
+    scores = torch.from_numpy(rows)
+    want = port_topk.topk_sparse_plain(scores, _EDGE_K, thresh)
+    got = _radix_select_topk(scores, _EDGE_K, thresh)
+    assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+    assert torch.equal(got[1], want[1])
