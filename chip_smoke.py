@@ -32,8 +32,12 @@ the model does not wire in. The script prints one JSON line per phase:
                synthetic, and dense edge rows: ties at the k-th value,
                k - 1, k and k + 1 live entries, one exponent bin), with
                the rows of each kernel branch; the fused block on blocks
-               0-2. Bit-equal (the fused block: within its tolerance) or
-               fail
+               0-2 of the trained trunk, fed its channels_last
+               activations as they are, and on MobileNetV3-Small's and
+               MobileNetV2's blocks (random weights, b32, CO up to 320,
+               the block without an expand conv); an NCHW input must
+               raise. Bit-equal (the fused block: within its tolerance)
+               or fail
   main_path_*  4 requests of 32 images per mode; launch counts reset just
                before and read just after, or fail; the fused path's
                branch per batch; each mode's detections against the
@@ -46,12 +50,13 @@ the model does not wire in. The script prints one JSON line per phase:
                path's host read
   trace_b128   where the device time of a b128 predict goes, per mode
 
-then `previous_design` (K1's and K3's times before their redesign:
-constants, not measured in this run), the `kernels` line (time, bound,
-plain and library time of each kernel, all from this run), the card line
-from nvidia-smi, and the last line
-{"ok": true, "device": {...}}. Any failed check raises, and the exit code
-is not 0. Without a CUDA device it exits with 2 before printing anything.
+then `previous_design` (K1's, K3's and K4's times before their
+redesign: constants, not measured in this run), the `kernels` line (time,
+bound, plain and library time of each kernel, all from this run; K4 timed
+with the L2 flushed before each call), the card line from nvidia-smi, and
+the last line {"ok": true, "device": {...}}. Any failed check raises, and
+the exit code is not 0. Without a CUDA device it exits with 2 before
+printing anything.
 """
 
 import json
@@ -62,32 +67,51 @@ import time
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _NPZ = os.path.join(_HERE, "bench_assets", "ssdlite320_shapes_trained.npz")
+_LOG = os.path.join(_HERE, "chiprun_out", "chip_smoke.jsonl")
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 _HBM_BYTES_PER_S = 3.35e12
 _FP32_OPS_PER_S = 67e12
+_TF32_OPS_PER_S = 495e12
 # f32 operations per IoU test in csrc/nms.cu: 2 min, 2 max, 2 sub, 2 clamp,
 # mul, add, sub, max, div, compare
 _OPS_PER_IOU = 14
 # the sparse top-k's arguments on the main path (detection.py)
 _TOPK_K, _TOPK_SLOTS = 300, 8
-# K1's and K3's times before their redesign (ms, torch.profiler device
-# time, b32: NMS with one block per problem and a barrier per kept
-# candidate, top-k sorting each dense row whole), measured by an earlier
-# version of this script on an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md
-# §6). Constants: printed on their own line, never in the `kernels` line
+# K1's, K3's and K4's times before their redesign (ms, torch.profiler
+# device time, b32: NMS with one block per problem and a barrier per kept
+# candidate, top-k sorting each dense row whole, the fused block with one
+# expanded channel at a time in NCHW, on a warm L2), measured by earlier
+# versions of this script on an NVIDIA H100 80GB HBM3 at 700.00 W
+# (PERF.md §6). Constants: printed on their own line, never in the
+# `kernels` line
 _PREVIOUS_MS = {"nms_trained": 0.0358, "nms_random": 0.1473,
            "nms_fused_K1024": 0.2791, "nms_fused_K2048": 0.3464,
-           "topk_trained": 0.1293, "topk_random": 0.6857}
+           "topk_trained": 0.1293, "topk_random": 0.6857,
+           "fused_block_0": 0.2989, "fused_block_1": 0.8593,
+           "fused_block_2": 0.4004}
 # the fused block against its plain version: |kernel - plain| <= atol +
-# rtol * |plain|. Both sum the same fp32 products in another order (fmaf
-# in the kernel, cuDNN with TF32 off in the plain version), over at most
-# 72 terms per sum; 1e-4 leaves a wide margin over that rounding.
+# rtol * |plain|. Both sum the same fp32 products in another order (the
+# kernel's tensor-core sums, cuDNN with TF32 off in the plain version),
+# over at most 960 terms per sum, and the kernel's split of each product
+# into TF32 terms drops a_lo * b_lo (about 2^-22 of it); with O(1)
+# activations 1e-4 leaves a wide margin over both.
 _BLOCK_ATOL = _BLOCK_RTOL = 1e-4
+# the L2 flush before each timed K4 call: zeroing 128 MB, over 2x the L2
+_FLUSH_BYTES = 128 << 20
+# cycles the card sleeps before a timed loop, so that the host queues the
+# whole loop first and host time never shows as gaps (~0.1 s)
+_QUEUE_SLEEP_CYCLES = 200_000_000
 
 
 def emit(obj):
-    print(json.dumps(obj), flush=True)
+    """One JSON line to stdout, and to chiprun_out/chip_smoke.jsonl, whole
+    (a long output may be cut to its end where it is read back)."""
+    line = json.dumps(obj)
+    print(line, flush=True)
+    os.makedirs(os.path.dirname(_LOG), exist_ok=True)
+    with open(_LOG, "a") as fh:
+        fh.write(line + "\n")
 
 
 def cuda_ms(fn, iters, warmup=2):
@@ -107,22 +131,37 @@ def cuda_ms(fn, iters, warmup=2):
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters):
-    """Mean device time of the kernels fn() launches, in ms, summed from a
-    torch.profiler trace; None if the trace holds no device time."""
+def _dev_us(e):
+    return getattr(e, "device_time_total", None) or getattr(
+        e, "cuda_time_total", 0)
+
+
+def device_ms(fn, iters, flush=None):
+    """Device time of one call of fn() in ms, from a torch.profiler trace
+    of `iters` calls (each after flush(), if given) queued behind a sleep
+    on the card: the kernels of the sleep (and of the flush, a fill) left
+    out by name, each other kernel's mean time times its launches per
+    call, so that a trace that drops an event still reads right. None if
+    the trace holds no kernel of fn."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    untimed = ("spin_kernel",) + (("FillFunctor",) if flush else ())
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(_QUEUE_SLEEP_CYCLES)
         for _ in range(iters):
+            if flush:
+                flush()
             fn()
         torch.cuda.synchronize()
-    total_us = sum(getattr(e, "device_time_total", None)
-                   or getattr(e, "cuda_time_total", 0)
-                   for e in prof.key_averages())
-    return total_us / iters / 1e3 if total_us else None
+    kernels = [e for e in prof.key_averages()
+               if _dev_us(e) and not any(n in e.key for n in untimed)]
+    if not kernels:
+        return None
+    return sum(_dev_us(e) / e.count * max(1, round(e.count / iters))
+               for e in kernels) / 1e3
 
 
 def timed(fn, iters, warmup=2):
@@ -250,10 +289,11 @@ def topk_work(rows, k, thresh):
 
 
 def block_work(x, folded, out):
-    """Bytes and fp32 operations of one fused block: x read, out written
-    and the folded weights read once; 2 per multiply-add of the expand,
-    depthwise and project convs, 1 per bias add, activation and residual
-    add (hard-swish counted as 1, as its cheapest form is not the point)."""
+    """Bytes and operations of one fused block: x read, out written and
+    the folded weights read once; the 1x1 products (2 per multiply-add of
+    the expand and project convs), and the rest in fp32: 2 per multiply-add
+    of the depthwise conv, 1 per bias add, activation and residual add
+    (hard-swish counted as 1, as its cheapest form is not the point)."""
     b, ci, h, w = x.shape
     _, co, ho, wo = out.shape
     ce = folded["depthwise"]["weight"].shape[0]
@@ -261,18 +301,137 @@ def block_work(x, folded, out):
                   if folded[name] is not None
                   for t in folded[name].values())
     nbytes = (x.numel() + out.numel() + weights) * 4
-    ops = 0
+    products = b * ho * wo * co * 2 * ce
+    rest = b * ho * wo * ce * (2 * 9 + 2) + b * ho * wo * co * 2
     if folded["expand"] is not None:
-        ops += b * h * w * ce * (2 * ci + 2)
-    ops += b * ho * wo * ce * (2 * 9 + 2)
-    ops += b * ho * wo * co * (2 * ce + 2)
-    return nbytes, ops
+        products += b * h * w * ce * 2 * ci
+        rest += b * h * w * ce * 2
+    return nbytes, products, rest
 
 
 def bound(nbytes, ops):
     t_bytes = nbytes / _HBM_BYTES_PER_S * 1e3
     t_ops = ops / _FP32_OPS_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def block_bound(nbytes, products, rest):
+    """K4's bound: the largest of the bytes at the memory rate, the 1x1
+    products counted 3 times (the fp32-accurate split into TF32 terms) at
+    the dense TF32 rate, and the rest at the fp32 rate; beside it the fp32
+    FMA bound of earlier versions (every operation at the fp32 rate)."""
+    t_bytes = nbytes / _HBM_BYTES_PER_S * 1e3
+    t_ops = max(3 * products / _TF32_OPS_PER_S, rest / _FP32_OPS_PER_S) * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_fp32_fma_ms": bound(nbytes, products + rest)[0],
+            "bytes": nbytes, "products": products, "rest_ops": rest}
+
+
+def cold_timed(fn, iters, flush):
+    """{'ms': device time of fn() with the L2 flushed before each call
+    (device_ms, the flush left out by name), 'event_ms': CUDA events
+    around fn() alone, the loop queued behind a sleep on the card so host
+    time does not count}. Where the trace holds none of fn's kernels, or
+    reads more than 10 % off the events (it has read one of two identical
+    calls at half their time), 'ms' is the event time."""
+    import torch
+
+    dev = device_ms(fn, iters, flush)
+    marks = []
+    torch.cuda._sleep(_QUEUE_SLEEP_CYCLES)
+    for _ in range(iters):
+        flush()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        marks.append((start, end))
+    torch.cuda.synchronize()
+    ev = sum(s.elapsed_time(e) for s, e in marks) / iters
+    use_dev = dev is not None and abs(dev - ev) <= 0.1 * ev
+    return {"ms": dev if use_dev else ev, "event_ms": ev, "profiler_ms": dev,
+            "ms_from": "profiler" if use_dev else "events",
+            "l2": "flushed before each call"}
+
+
+def ptxas_usage(log):
+    """Registers and spill bytes per kernel instance from ptxas -v, keyed
+    by the template arguments of fused_block_kernel<npw, min_blocks,
+    expand>."""
+    import re
+
+    usage, entry = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            t = re.search(r"ILi(\d+)ELi(\d+)ELb([01])E", m.group(1))
+            entry = (f"<{t.group(1)},{t.group(2)},{t.group(3)}>" if t
+                     else m.group(1))
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if entry and m:
+            usage.setdefault(entry, {}).update(
+                spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if entry and m:
+            usage.setdefault(entry, {})["registers"] = int(m.group(1))
+    return usage
+
+
+def contract_blocks():
+    """Eligible blocks beyond the trained trunk's 0-2, at a 320x320 image:
+    (name, CI, CE, CO, H, W, stride, act). MobileNetV3-Small's 16 -> 72 ->
+    24 (stride 2) and 24 -> 88 -> 24 (relu), and MobileNetV2's 17 blocks
+    (relu6; demonet_tpu/models/mobilenetv2.py's table), the first without
+    an expand conv."""
+    blocks = [("v3s_1", 16, 72, 24, 80, 80, 2, "relu"),
+              ("v3s_2", 24, 88, 24, 40, 40, 1, "relu")]
+    c, hw = 32, 160
+    for t, oc, n, s in ((1, 16, 1, 1), (6, 24, 2, 2), (6, 32, 3, 2),
+                        (6, 64, 4, 2), (6, 96, 3, 1), (6, 160, 3, 2),
+                        (6, 320, 1, 1)):
+        for r in range(n):
+            st = s if r == 0 else 1
+            blocks.append((f"v2_{len(blocks) - 1}", c, c * t, oc, hw, hw, st,
+                           "relu6"))
+            hw, c = (hw - 1) // st + 1, oc
+    return blocks
+
+
+def random_block(ci, ce, co, stride, act, dev, seed):
+    """The port's unfused block with seeded random weights: convs at
+    He-like scale (1/sqrt(fan_in)) and BN statistics near the identity, so
+    that the folded weights keep that scale and outputs stay O(1); BN eps
+    1e-5 as in MobileNetV2. Eval mode, channels_last, on dev."""
+    import torch
+
+    from demonet_tpu_torch.models.layers import (
+        InvertedResidualV3,
+        hard_swish,
+        relu6,
+    )
+
+    blk = InvertedResidualV3(ci, ce, co, 3, stride)
+    fn = {"relu": torch.relu, "relu6": relu6, "hswish": hard_swish}[act]
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for layer in (blk.expand_conv, blk.depthwise, blk.project):
+            if layer is None:
+                continue
+            wt = layer.conv.weight
+            fan_in = wt.shape[1] * wt.shape[2] * wt.shape[3]
+            wt.copy_(torch.randn(wt.shape, generator=gen) / fan_in ** 0.5)
+            n = wt.shape[0]
+            layer.bn.eps = 1e-5
+            layer.bn.weight.copy_(0.5 + torch.rand(n, generator=gen))
+            layer.bn.bias.copy_(0.1 * torch.randn(n, generator=gen))
+            layer.bn.running_mean.copy_(0.1 * torch.randn(n, generator=gen))
+            layer.bn.running_var.copy_(0.5 + torch.rand(n, generator=gen))
+            if layer.act is not None:
+                layer.act = fn
+    return blk.eval().to(dev).to(memory_format=torch.channels_last)
 
 
 def check(cond, what):
@@ -394,6 +553,66 @@ def word_boundary_problems(k, seed=11):
     return boxes, scores, marks
 
 
+def check_fused_block(name, x, folded, unfused_out=None):
+    """K4 against its plain version on x (channels_last), within the
+    stated tolerance, and its output channels_last; its plan's shared
+    memory the same by the kernel's formulas and by plan_layout's; the
+    error summary."""
+    import ctypes
+
+    import torch
+
+    from demonet_tpu_torch.ops import _build
+    from demonet_tpu_torch.ops.fused_block import (
+        fused_inverted_residual,
+        fused_inverted_residual_plain,
+        plan_layout,
+        tile_plan,
+    )
+
+    with torch.inference_mode():
+        got = fused_inverted_residual(x, **folded)
+        want = fused_inverted_residual_plain(x, **folded)
+    torch.cuda.synchronize()
+    b, ci, h, w = x.shape
+    ce, co = folded["depthwise"]["weight"].shape[0], got.shape[1]
+    s, has_expand = folded["stride"], folded["expand"] is not None
+    plan = tile_plan(ci, ce, co, h, w, s, has_expand, min_tiles(b))
+    smem = plan_layout(ci, ce, co, s, has_expand, plan)["smem_bytes"]
+    smem_c = _build.load("fused_block").fused_inverted_residual_smem(
+        *(ctypes.c_int(v) for v in (ci, ce, co, h, w, s, int(has_expand),
+                                    *plan)))
+    check(smem_c == smem, f"fused block {name}, plan {plan}: the kernel "
+          f"asks for {smem_c} bytes of shared memory, plan_layout {smem}")
+    diff = (got - want).abs()
+    big = want.abs() >= 1e-2
+    err = {"block": name, "x": list(x.shape), "out": list(got.shape),
+           "ce": ce, "stride": s, "act": folded["act"], "plan": list(plan),
+           "smem_bytes": smem, "max_abs_err": float(diff.max()),
+           "max_rel_err_where_abs_ge_1e-2": float(
+               (diff[big] / want.abs()[big]).max()) if big.any() else 0.0,
+           "max_share_of_tolerance": float(
+               (diff / (_BLOCK_ATOL + _BLOCK_RTOL * want.abs())).max()),
+           "max_abs_out": float(want.abs().max())}
+    if unfused_out is not None:
+        err["max_abs_err_vs_unfused_module"] = float(
+            (got - unfused_out).abs().max())
+    check(bool(torch.isfinite(got).all())
+          and bool((diff <= _BLOCK_ATOL + _BLOCK_RTOL * want.abs()).all()),
+          f"fused block kernel != plain beyond tolerance: {err}")
+    check(got.is_contiguous(memory_format=torch.channels_last),
+          f"fused block output on {name} is not channels_last")
+    return err
+
+
+def min_tiles(b):
+    """The tiles an image must give for a batch of b to put a block on
+    each SM, as the wrapper asks tile_plan for them."""
+    import torch
+
+    return torch.cuda.get_device_properties(0).multi_processor_count // b
+
+
 def main():
     import torch
 
@@ -431,6 +650,8 @@ def main():
     from demonet_tpu_torch.utils.weights import load_jax_variables
 
     t_start = time.perf_counter()
+    if os.path.exists(_LOG):
+        os.remove(_LOG)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -449,7 +670,8 @@ def main():
     ptxas = {name: [ln.strip() for ln in _build.build_log(name).splitlines()
                     if "registers" in ln or "Compiling entry" in ln]
              for name in secs}
-    emit({"phase": "build", "seconds": secs, "ptxas": ptxas})
+    emit({"phase": "build", "seconds": secs, "ptxas": ptxas,
+          "fused_block_usage": ptxas_usage(_build.build_log("fused_block"))})
 
     thr = _NEG_INF / 2
     iou = 0.55
@@ -674,41 +896,40 @@ def main():
                               "one_exponent_bin") else 0) for c in spread),
           f"top-k cases do not cover every branch: {topk_rows}")
 
-    # fused inverted-residual block: blocks 0-2 of the trained trunk
+    # fused inverted-residual block: blocks 0-2 of the trained trunk on
+    # the trunk's own activations (channels_last in memory on the card,
+    # fed as they are), then the other blocks of the kernel's contract
+    # with random weights
     trunk = trained.model.extractor.trunk
     folded = [fold_inverted_residual(trunk.blocks[i]) for i in range(3)]
-    # the trunk's activations as the model leaves them (channels_last in
-    # memory on the card), and the contiguous NCHW copies the kernel takes
     with torch.inference_mode():
         native = [trunk.stem(preprocess(batches[0], cfg,
                                         resize=False).permute(0, 3, 1, 2))]
         for i in range(3):
             native.append(trunk.blocks[i](native[-1]))
-    xs = [t.contiguous() for t in native]
-    block_err = []
-    for i in range(3):
-        with torch.inference_mode():
-            got = fused_inverted_residual(xs[i], **folded[i])
-            want = fused_inverted_residual_plain(xs[i], **folded[i])
-        torch.cuda.synchronize()
-        diff = (got - want).abs()
-        big = want.abs() >= 1e-2
-        err = {"block": i, "x": list(xs[i].shape), "out": list(got.shape),
-               "max_abs_err": float(diff.max()),
-               "max_rel_err_where_abs_ge_1e-2": float(
-                   (diff[big] / want.abs()[big]).max()),
-               "max_share_of_tolerance": float(
-                   (diff / (_BLOCK_ATOL + _BLOCK_RTOL * want.abs())).max()),
-               "max_abs_err_vs_unfused_module": float(
-                   (got - xs[i + 1]).abs().max())}
-        check(bool((diff <= _BLOCK_ATOL + _BLOCK_RTOL * want.abs()).all()),
-              f"fused block kernel != plain beyond tolerance: {err}")
-        block_err.append(err)
-    emit({"phase": "kernel_fused_block", "weights": "trained",
+    check(all(t.is_contiguous(memory_format=torch.channels_last)
+              for t in native), "trunk activations are not channels_last")
+    block_err = [check_fused_block(f"v3l_{i}", native[i], folded[i],
+                                   native[i + 1]) for i in range(3)]
+    others = {}
+    for n, (name, ci, ce, co, h, w, s, act) in enumerate(contract_blocks()):
+        mod = random_block(ci, ce, co, s, act, dev, seed=20 + n)
+        x_o = torch.randn((b, h, w, ci), device=dev, generator=torch.Generator(
+            device=dev).manual_seed(20 + n)).permute(0, 3, 1, 2)
+        others[name] = (x_o, fold_inverted_residual(mod), mod)
+        block_err.append(check_fused_block(name, x_o, others[name][1]))
+    try:
+        fused_inverted_residual(native[0].contiguous(), **folded[0])
+        raised = "nothing"
+    except ValueError as e:
+        raised = str(e)
+    check("channels_last" in raised,
+          f"an NCHW-contiguous CUDA input gave {raised!r}, not a ValueError")
+    emit({"phase": "kernel_fused_block",
+          "weights": "trained (v3l_*), random He-like (others)",
           "tolerance": {"atol": _BLOCK_ATOL, "rtol": _BLOCK_RTOL},
-          "trunk_activations_channels_last": native[0].is_contiguous(
-              memory_format=torch.channels_last),
-          "blocks": block_err})
+          "trunk_activations_channels_last": True,
+          "nchw_input_raises": raised, "blocks": block_err})
 
     # -- main paths: 4 requests of 32 through the user's entry point -------
     def check_detections(dets):
@@ -827,7 +1048,7 @@ def main():
     def fused_blocks(x):
         with torch.inference_mode():
             y = trunk.stem(preprocess(x, cfg, resize=False).permute(
-                0, 3, 1, 2)).contiguous()
+                0, 3, 1, 2))
             for f in folded:
                 y = fused_inverted_residual(y, **f)
         return y
@@ -851,10 +1072,16 @@ def main():
                 want = trunk.blocks[i](want)
         check(y.shape == want.shape and bool(torch.isfinite(y).all()),
               "fused blocks output")
+        share = float(((y - want).abs() / (
+            _BLOCK_ATOL + _BLOCK_RTOL * want.abs())).max())
+        check(share <= 1.0, f"fused blocks differ from the unfused blocks "
+              f"by {share} of the tolerance")
         worst = max(worst, float((y - want).abs().max()))
     emit({"phase": "main_path_fused_blocks", "batches": len(batches),
-          "batch": b, "launches": counts,
-          "max_abs_err_vs_unfused_blocks": worst})
+          "batch": b, "launches": counts, "input": "the stem's output as "
+          "it is (channels_last), no copy",
+          "max_abs_err_vs_unfused_blocks": worst,
+          "tolerance": {"atol": _BLOCK_ATOL, "rtol": _BLOCK_RTOL}})
 
     # -- reference: the card against the CPU, kernels against plain --------
     out_main, _ = regimes["trained"]
@@ -1009,36 +1236,54 @@ def main():
                        regimes["random"][1]["scores"]),
             "branches": topk_rows["random_weights"]}})
 
-    blocks = []
-    for i in range(3):
-        x_i, f = xs[i], folded[i]
+    # K4 with the L2 flushed before each call (block 2's 20 MB input would
+    # stay in the 50 MB L2 otherwise), the flush left out of the time
+    scratch = torch.empty(_FLUSH_BYTES // 4, device=dev)
+
+    def block_row(name, x_b, f, library):
         with torch.inference_mode():
-            out = fused_inverted_residual(x_i, **f)
-            nbytes, ops = block_work(x_i, f, out)
-            bms, by = bound(nbytes, ops)
-            k_t = timed(lambda: fused_inverted_residual(x_i, **f), 20)
-            p_t = timed(lambda: fused_inverted_residual_plain(x_i, **f), 20)
-            l_t = timed(lambda: trunk.blocks[i](native[i]), 20)
-        blocks.append({"block": i, "x": list(x_i.shape),
-                       "out": list(out.shape), "ms": k_t["ms"],
-                       "plain_ms": p_t["ms"], "library_ms": l_t["ms"],
-                       "bound_ms": bms, "bound_by": by, "bytes": nbytes,
-                       "ops": ops, "event_ms": k_t["event_ms"],
-                       "ms_from": k_t["ms_from"]})
+            out = fused_inverted_residual(x_b, **f)
+            k_t = cold_timed(lambda: fused_inverted_residual(x_b, **f), 20,
+                             scratch.zero_)
+            p_t = cold_timed(lambda: fused_inverted_residual_plain(x_b, **f),
+                             10, scratch.zero_)
+            l_t = cold_timed(library, 10, scratch.zero_)
+        return {"block": name, "x": list(x_b.shape), "out": list(out.shape),
+                "ms": k_t["ms"], "plain_ms": p_t["ms"],
+                "library_ms": l_t["ms"], **block_bound(*block_work(
+                    x_b, f, out)),
+                "event_ms": k_t["event_ms"], "profiler_ms": k_t["profiler_ms"],
+                "ms_from": k_t["ms_from"]}
+
+    blocks = [block_row(f"v3l_{i}", native[i], folded[i],
+                        lambda i=i: trunk.blocks[i](native[i]))
+              for i in range(3)]
+    other_rows = [block_row(name, x_o, f_o, lambda m=mod, x=x_o: m(x))
+                  for name, (x_o, f_o, mod) in others.items()]
     b_sum = {key: sum(c[key] for c in blocks)
-             for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+             for key in ("ms", "plain_ms", "library_ms", "bound_ms",
+                         "bound_fp32_fma_ms")}
     rows.append({
         "name": "fused_inverted_residual", "route": "cuda",
         "source": "demonet_tpu_torch/csrc/fused_block.cu",
         "replaces": "demonet_tpu/ops/fused_block.py:144",
         "launches": total_launches("fused_inverted_residual"),
         "launches_by_path": by_path("fused_inverted_residual"),
-        "max_abs_err": max(e["max_abs_err"] for e in block_err),
+        "max_abs_err": max(e["max_abs_err"] for e in block_err[:3]),
         "tolerance": {"atol": _BLOCK_ATOL, "rtol": _BLOCK_RTOL}, **b_sum,
         "bound_by": "+".join(sorted({c["bound_by"] for c in blocks})),
+        "bound": "max(bytes / 3.35 TB/s, 3 x 1x1-product operations / 495 "
+                 "TFLOP/s, the rest / 67 TFLOP/s); bound_fp32_fma_ms: every "
+                 "operation at 67 TFLOP/s",
+        "l2": "flushed before each timed call",
         "library": "the port's unfused block (cuDNN convs, BN, activations) "
-                   "on the trunk's own activations",
-        "per_pass": "blocks 0-2 at b32", "calls": blocks})
+                   "on the same channels_last activations",
+        "ptxas": ptxas_usage(_build.build_log("fused_block")),
+        "per_pass": "blocks 0-2 at b32", "calls": blocks,
+        "other_shapes": {"weights": "random He-like", "batch": b,
+                         "max_abs_err": max(e["max_abs_err"]
+                                            for e in block_err[3:]),
+                         "calls": other_rows}})
 
     e2e = {}
     modes = {"reference": {}, "fused": {"impl": "fused"},
@@ -1099,8 +1344,7 @@ def main():
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3 / 3
         per_kernel = sorted(
-            ((getattr(e, "device_time_total", None)
-              or getattr(e, "cuda_time_total", 0)) / 3e3, e.key[:60])
+            (_dev_us(e) / 3e3, e.key[:60])
             for e in prof.key_averages())[::-1]
         busy_ms = sum(t for t, _ in per_kernel)
         emit({"phase": "trace_b128", "mode": mode,
@@ -1111,9 +1355,10 @@ def main():
               "top_kernels_ms": [[k, t] for t, k in per_kernel[:10]],
               "seconds_so_far": time.perf_counter() - t_start})
 
+    emit({"phase": "timing", "seconds": time.perf_counter() - t_start})
     emit({"phase": "previous_design", "constants": True,
           "not_measured_in_this_run": True,
-          "what": "K1 and K3 device ms before their redesign, b32",
+          "what": "K1, K3 and K4 device ms before their redesign, b32",
           "source": "PERF.md section 6", "card": "NVIDIA H100 80GB HBM3, "
           "700.00 W", "ms": _PREVIOUS_MS})
     emit({"kernels": rows})
