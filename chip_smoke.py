@@ -3,14 +3,17 @@
 
     python3 chip_smoke.py
 
-The main path is flagship inference: ssdlite320_mobilenet_v3_large
-(91 classes, 320x320, fp32) predict through `make_predict_step`, with the
+The main paths are flagship inference and flagship training of
+ssdlite320_mobilenet_v3_large (91 classes, 320x320, fp32), from the
 trained weights of bench_assets/ssdlite320_shapes_trained.npz loaded by
-`load_jax_variables`, in each of its serving modes: the reference
-postprocess, the fused serving postprocess (impl="fused") and the
-chunk-skipping top-k (topk_impl="sparse_pallas"). Beside them runs the
-fused inverted-residual kernel over blocks 0-2 of the trained trunk, which
-the model does not wire in. The script prints one JSON line per phase:
+`load_jax_variables`: predict through `make_predict_step` in each of its
+serving modes (the reference postprocess, the fused serving postprocess
+(impl="fused") and the chunk-skipping top-k (topk_impl="sparse_pallas")),
+and the train step and epoch loop (`make_train_step`, `train_one_epoch`,
+checkpoints). Beside them runs the fused inverted-residual kernel over
+blocks 0-2 of the trained trunk, which the model does not wire in. The
+training path reaches none of the kernels, as in the JAX package. The
+script prints one JSON line per phase:
 
   device       card, power limit, torch/CUDA versions; TF32 turned off
   build        nvcc of csrc/*.cu, one process per source, all started
@@ -49,16 +52,32 @@ the model does not wire in. The script prints one JSON line per phase:
                with a forward/postprocess split, and the cost of the fused
                path's host read
   trace_b128   where the device time of a b128 predict goes, per mode
+  train_check  two train steps from the trained weights on 4 frames with
+               their rectangles as gt, on the card and on the CPU: loss
+               terms, every parameter and BN statistic after step 2, the
+               matching and the hard-negative masks of each step
+  train_e2e    closed-loop train steps at b32 and b128: ms per step, img/s,
+               peak memory, forward/loss/backward/optimizer by CUDA events,
+               steps_per_call = 4 against single steps; every timed step
+               with synchronising CUDA calls made errors
+  trace_train_b128  where the device time of a b128 train step goes
+  train_loop   train_one_epoch over 8 batches of 32; checkpoint save and
+               load, the resumed state's next step bit-equal to the
+               continued one's; predict after training bit-equal to a
+               fresh model in eval mode
+  launch_floor the device time of a one-float fill, the shortest kernel
 
 then `previous_design` (K1's, K3's and K4's times before their
 redesign: constants, not measured in this run), the `kernels` line (time,
 bound, plain and library time of each kernel, all from this run; K4 timed
-with the L2 flushed before each call), the card line from nvidia-smi, and
+with the L2 flushed before each call; and launch_floor_ms), the card line
+from nvidia-smi, and
 the last line {"ok": true, "device": {...}}. Any failed check raises, and
 the exit code is not 0. Without a CUDA device it exits with 2 before
 printing anything.
 """
 
+import contextlib
 import json
 import os
 import subprocess
@@ -173,18 +192,30 @@ def timed(fn, iters, warmup=2):
             "ms_from": "profiler" if dev is not None else "events"}
 
 
-def shapes_images(rng, b, size=320):
+def shapes_images(rng, b, size=320, max_gt=8):
     """Noise backgrounds with 1-4 filled rectangles: the kind of frame the
-    trained 'shapes' weights detect things in."""
+    trained 'shapes' weights detect things in, and the rectangles as
+    ground truth. Returns (images (b, size, size, 3) uint8, {'gt_boxes':
+    (b, max_gt, 4) xyxy float32, 'gt_labels': (b, max_gt) int32, 1-6 by
+    the fill colour as in bench_assets/val_gt_320.npz, 'gt_valid': (b,
+    max_gt) bool}), padded to max_gt. The labels take no draw of their
+    own, so the images are those of earlier versions of this script."""
     import numpy as np
 
     imgs = rng.integers(0, 60, (b, size, size, 3)).astype(np.uint8)
-    for img in imgs:
-        for _ in range(int(rng.integers(1, 5))):
+    gt = {"gt_boxes": np.zeros((b, max_gt, 4), np.float32),
+          "gt_labels": np.zeros((b, max_gt), np.int32),
+          "gt_valid": np.zeros((b, max_gt), bool)}
+    for i, img in enumerate(imgs):
+        for j in range(int(rng.integers(1, 5))):
             bw, bh = rng.integers(size // 8, size // 2, 2)
             x0, y0 = rng.integers(0, size - bw), rng.integers(0, size - bh)
-            img[y0:y0 + bh, x0:x0 + bw] = rng.integers(40, 256, 3)
-    return imgs
+            colour = rng.integers(40, 256, 3)
+            img[y0:y0 + bh, x0:x0 + bw] = colour
+            gt["gt_boxes"][i, j] = [x0, y0, x0 + bw, y0 + bh]
+            gt["gt_labels"][i, j] = 1 + int(colour.sum()) % 6
+            gt["gt_valid"][i, j] = True
+    return imgs, gt
 
 
 def head_to_candidates(det, outputs):
@@ -613,6 +644,430 @@ def min_tiles(b):
     return torch.cuda.get_device_properties(0).multi_processor_count // b
 
 
+
+# -- training ---------------------------------------------------------------
+# the recipe's SGD (demonet_tpu/engine/state.py): lr 0.02, momentum 0.9,
+# weight decay 1e-4
+_TRAIN_LR, _TRAIN_MOMENTUM, _TRAIN_WD = 0.02, 0.9, 1e-4
+# train_check, card against the CPU port after steps 1-2 from the trained
+# weights on B = 4 frames: both run the same fp32 step, summing in another
+# order (cuDNN with TF32 off against the CPU's kernels). The BN layers of
+# the 1x1 and 2x2 extra maps hold 4-16 values per channel, which makes the
+# float32 gradients of the early trunk differ by up to ~2 % between such
+# runs (the CPU tests measure 1.7e-2 between the port's float32 and
+# float64 steps at B = 2); lr 0.02 turns that into ~1e-4 in the weights.
+_TRAIN_LOSS_RTOL = 1e-4
+_TRAIN_STATE_ATOL = _TRAIN_STATE_RTOL = 2e-3
+_TRAIN_PHASES = ("forward", "loss", "backward", "optimizer")
+
+
+def train_batch(seed, b, device):
+    """A seeded batch of shapes frames (uint8) with their ground truth, as
+    the train step takes it, on `device`."""
+    import numpy as np
+    import torch
+
+    imgs, gt = shapes_images(np.random.default_rng(seed), b)
+    batch = {"images": imgs, **gt}
+    return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+
+
+def trained_detector(device, seed=0):
+    """ssdlite320_mobilenet_v3_large with the trained npz's weights."""
+    import numpy as np
+
+    from demonet_tpu_torch.models.builders import (
+        ssdlite320_mobilenet_v3_large,
+    )
+    from demonet_tpu_torch.utils.weights import load_jax_variables
+
+    det = ssdlite320_mobilenet_v3_large(num_classes=91, device=device,
+                                        seed=seed)
+    with np.load(_NPZ) as z:
+        load_jax_variables(det.model, {k: z[k] for k in z.files})
+    return det
+
+
+def train_logits(det, images):
+    """The class logits a train step's forward gives on these images: a
+    train-mode forward without gradients, the BN statistics it moves put
+    back as they were."""
+    import torch
+
+    from demonet_tpu_torch.models.detection import preprocess
+
+    model = det.model
+    saved = {n: b.clone() for n, b in model.named_buffers()}
+    with torch.no_grad():
+        logits = model.train()(preprocess(images, det.config,
+                                          resize=False))["cls_logits"]
+        for n, b in model.named_buffers():
+            b.copy_(saved[n])
+    return logits
+
+
+def cut_margins(ce, fg, ratio):
+    """Per image, the CE gap at the hard-negative cut: the last kept
+    negative's CE minus the first dropped one's (inf where nothing is
+    cut)."""
+    import torch
+
+    neg = torch.where(fg, float("-inf"), ce).double()
+    ranked = torch.sort(neg, dim=1, descending=True, stable=True).values
+    out = []
+    for i in range(ce.shape[0]):
+        k = int(ratio * int(fg[i].sum()))
+        if k == 0 or k >= ce.shape[1]:
+            out.append(float("inf"))
+        else:
+            out.append(float(ranked[i, k - 1] - ranked[i, k]))
+    return out
+
+
+@contextlib.contextmanager
+def sync_errors():
+    """Any synchronising CUDA call inside the block raises (set_sync_debug
+    _mode('error')): a train step must never wait for the device."""
+    import torch
+
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+@contextlib.contextmanager
+def cudnn_deterministic():
+    """cuDNN restricted to deterministic algorithms inside the block, so
+    that two runs of the same step can be compared bit for bit."""
+    import torch
+
+    old = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = old
+
+
+def train_check():
+    """Steps 1 and 2 from the trained weights on 4 frames, on the card and
+    on the CPU: loss terms, every parameter and BN statistic after step 2,
+    the matching and the hard-negative masks of each step, and the card's
+    mining of the CPU's logits against the CPU's. Emits the comparison,
+    then fails on any miss.
+
+    The mask is a cut through ~3,000 negatives per image whose CE crowds
+    near 0 under trained weights, so neighbours at the cut lie 1e-5-1e-4
+    apart, not far above the two devices' difference in CE. The frames
+    (seed 2) are those of 40 seeds whose narrowest gap at the cut is the
+    widest on the CPU (7.5e-5 at step 1, 9.4e-5 at step 2); each step's
+    gaps are printed."""
+    import torch
+
+    from demonet_tpu_torch.engine.state import (
+        create_train_state,
+        make_optimizer,
+    )
+    from demonet_tpu_torch.engine.train import make_train_step
+    from demonet_tpu_torch.models.losses import (
+        classification_terms,
+        match_batch,
+    )
+
+    runs = {}
+    for where in ("cuda", "cpu"):
+        det = trained_detector(where)
+        cfg = det.config
+        b = train_batch(2, 4, det.device)
+        anchors = torch.as_tensor(det.anchors, device=det.device)
+        matched = match_batch(anchors, b["gt_boxes"], b["gt_valid"],
+                              cfg.iou_thresh)
+        state = create_train_state(det, make_optimizer(
+            _TRAIN_LR, _TRAIN_MOMENTUM, _TRAIN_WD))
+        step = make_train_step(det)
+        steps = []
+        for _ in range(2):
+            logits = train_logits(det, b["images"])
+            ce, fg, bg = classification_terms(logits, matched,
+                                              b["gt_labels"],
+                                              cfg.neg_to_pos_ratio)
+            state, m = step(state, b)
+            steps.append({"metrics": {k: float(v) for k, v in m.items()},
+                          "bg": bg.cpu(), "logits": logits.cpu(),
+                          "margins": cut_margins(ce.cpu(), fg.cpu(),
+                                                 cfg.neg_to_pos_ratio)})
+        runs[where] = {"matched": matched.cpu(), "steps": steps,
+                       "labels": b["gt_labels"].cpu(),
+                       "state": {n: v.detach().cpu() for n, v in
+                                 det.model.state_dict().items()
+                                 if not n.endswith("num_batches_tracked")}}
+    card, cpu = runs["cuda"], runs["cpu"]
+    misses = []
+    loss_rel = []
+    for k, (g, w) in enumerate(zip(card["steps"], cpu["steps"])):
+        rel = {key: abs(g["metrics"][key] - w["metrics"][key])
+               / abs(w["metrics"][key]) for key in w["metrics"]}
+        loss_rel.append(rel)
+        if max(rel.values()) > _TRAIN_LOSS_RTOL:
+            misses.append(f"step {k + 1} loss terms {rel}")
+        if not torch.equal(g["bg"], w["bg"]):
+            misses.append(
+                f"step {k + 1} hard negatives: "
+                f"{int((g['bg'] != w['bg']).sum())} anchors differ; CE "
+                f"margin at the cut per image, card {g['margins']}, CPU "
+                f"{w['margins']}")
+    matched_equal = torch.equal(card["matched"], cpu["matched"])
+    if not matched_equal:
+        misses.append("matched_idxs differ")
+    same_logits = []
+    for k, w in enumerate(cpu["steps"]):
+        _, _, bg_card = classification_terms(
+            w["logits"].cuda(), cpu["matched"].cuda(),
+            cpu["labels"].cuda(), cfg.neg_to_pos_ratio)
+        same_logits.append(torch.equal(bg_card.cpu(), w["bg"]))
+        if not same_logits[-1]:
+            misses.append(f"step {k + 1}: the card's mining of the CPU's "
+                          "logits differs from the CPU's")
+    logit_err = [float((g["logits"] - w["logits"]).abs().max())
+                 for g, w in zip(card["steps"], cpu["steps"])]
+    worst_abs, worst_share, worst_name = 0.0, 0.0, None
+    for name, want in cpu["state"].items():
+        diff = (card["state"][name] - want).abs()
+        share = float((diff / (_TRAIN_STATE_ATOL + _TRAIN_STATE_RTOL
+                               * want.abs())).max())
+        worst_abs = max(worst_abs, float(diff.max()))
+        if share > worst_share:
+            worst_share, worst_name = share, name
+    if worst_share > 1.0:
+        misses.append(f"{worst_name} after step 2: {worst_share} of the "
+                      "tolerance")
+    emit({"phase": "train_check", "batch": 4, "weights": "trained npz",
+          "lr": _TRAIN_LR, "momentum": _TRAIN_MOMENTUM,
+          "weight_decay": _TRAIN_WD,
+          "loss_card": [s["metrics"] for s in card["steps"]],
+          "loss_cpu": [s["metrics"] for s in cpu["steps"]],
+          "loss_rel_err": loss_rel, "loss_rtol": _TRAIN_LOSS_RTOL,
+          "matched_idxs_equal": matched_equal,
+          "foreground_anchors": int((cpu["matched"] >= 0).sum()),
+          "hard_negatives_equal": [torch.equal(g["bg"], w["bg"]) for g, w in
+                                   zip(card["steps"], cpu["steps"])],
+          "hard_negatives_same_logits_equal": same_logits,
+          "logits_max_abs_err": logit_err,
+          "ce_gap_at_cut_min": {
+              "card": [min(s["margins"]) for s in card["steps"]],
+              "cpu": [min(s["margins"]) for s in cpu["steps"]]},
+          "state_max_abs_err": worst_abs,
+          "state_max_share_of_tolerance": worst_share,
+          "state_worst": worst_name,
+          "state_tolerance": {"atol": _TRAIN_STATE_ATOL,
+                              "rtol": _TRAIN_STATE_RTOL},
+          "entries_compared": len(cpu["state"]), "misses": misses})
+    check(not misses, f"train_check: {misses}")
+
+
+def train_e2e(launch_counts):
+    """Closed-loop train steps at b32 and b128 from the trained weights:
+    ms per step, img/s, peak memory, the split by CUDA events, and
+    steps_per_call = 4 against single steps; every timed step under
+    sync_errors. Then the b128 trace. The kernels' counts over the timed
+    steps come back as launch_counts() reads them."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from demonet_tpu_torch.engine.state import (
+        create_train_state,
+        make_optimizer,
+    )
+    from demonet_tpu_torch.engine.train import make_train_step
+
+    out = {}
+    for bs, iters in ((32, 20), (128, 10)):
+        det = trained_detector("cuda")
+        state = create_train_state(det, make_optimizer(
+            _TRAIN_LR, _TRAIN_MOMENTUM, _TRAIN_WD))
+        step = make_train_step(det)
+        batch = train_batch(1000 + bs, bs, "cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(3):
+            step(state, batch)
+        torch.cuda.synchronize()
+        counts_before = launch_counts()
+        per_step = []
+        for _ in range(iters):     # closed loop: one step, then the next
+            t0 = time.perf_counter()
+            with sync_errors():
+                step(state, batch)
+            torch.cuda.synchronize()
+            per_step.append((time.perf_counter() - t0) * 1e3)
+        split = {p: [] for p in _TRAIN_PHASES}
+        for _ in range(5):
+            marks = {"start": torch.cuda.Event(enable_timing=True)}
+
+            def on_phase(name, marks=marks):
+                marks[name] = torch.cuda.Event(enable_timing=True)
+                marks[name].record()
+
+            marks["start"].record()
+            with sync_errors():
+                step(state, batch, on_phase=on_phase)
+            torch.cuda.synchronize()
+            prev = "start"
+            for p in _TRAIN_PHASES:
+                split[p].append(marks[prev].elapsed_time(marks[p]))
+                prev = p
+        multi = make_train_step(det, steps_per_call=4)
+        stacked = {k: torch.stack([v] * 4) for k, v in batch.items()}
+        per_call = {"single_x4": [], "steps_per_call_4": []}
+        for _ in range(3):
+            for name in ("single_x4", "steps_per_call_4"):
+                t0 = time.perf_counter()
+                with sync_errors():
+                    if name == "single_x4":
+                        for _ in range(4):
+                            step(state, batch)
+                    else:
+                        multi(state, stacked)
+                torch.cuda.synchronize()
+                per_call[name].append((time.perf_counter() - t0) * 1e3 / 4)
+        counts_after = launch_counts()
+        q1, med, q3 = np.percentile(per_step, [25, 50, 75])
+        out[f"b{bs}"] = {
+            "ms_per_step_median": med, "ms_per_step_q1_q3": [q1, q3],
+            "n": iters, "img_per_s": bs / med * 1e3,
+            "split_ms_median": {p: float(np.median(v))
+                                for p, v in split.items()},
+            "split_n": 5,
+            "ms_per_step_single_vs_steps_per_call_4": {
+                k: float(np.median(v)) for k, v in per_call.items()},
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "kernel_launches_in_timed_steps": {
+                k: counts_after[k] - counts_before[k] for k in counts_after},
+            "last_loss": float(step(state, batch)[1]["loss"])}
+        check(np.isfinite(out[f"b{bs}"]["last_loss"]),
+              f"train_e2e b{bs}: loss is not finite")
+    emit({"phase": "train_e2e", "weights": "trained npz",
+          "images": "shapes, seeded, with their boxes as gt",
+          "sync_debug_mode": "error in every timed step", **out})
+
+    # where the device time of a b128 train step goes
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(3):
+            step(state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / 3
+    per_kernel = sorted((_dev_us(e) / 3e3, e.key[:60])
+                        for e in prof.key_averages())[::-1]
+    busy_ms = sum(t for t, _ in per_kernel)
+    emit({"phase": "trace_train_b128", "wall_ms_per_step": wall_ms,
+          "device_busy_ms_per_step": busy_ms,
+          "device_idle_share": (1.0 - busy_ms / wall_ms) if busy_ms
+          else None,
+          "top_kernels_ms": [[k, t] for t, k in per_kernel[:10]]})
+    return out
+
+
+class _Rows:
+    """A metrics writer that keeps the rows."""
+
+    def __init__(self):
+        self.rows = []
+
+    def write(self, step, metrics):
+        self.rows.append({"step": step, **metrics})
+
+
+def train_loop():
+    """train_one_epoch over 8 batches of 32 (print_freq 4); a checkpoint
+    saved and loaded into a fresh state, whose next step must equal the
+    next step of the state that went on, bit for bit; then predict on the
+    trained model, which the step left in train mode, against a fresh
+    model in eval mode with the same weights, bit for bit."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from demonet_tpu_torch.engine.evaluate import make_predict_step
+    from demonet_tpu_torch.engine.state import (
+        create_train_state,
+        make_lr_schedule,
+        make_optimizer,
+    )
+    from demonet_tpu_torch.engine.train import (
+        make_train_step,
+        train_one_epoch,
+    )
+    from demonet_tpu_torch.models.builders import (
+        ssdlite320_mobilenet_v3_large,
+    )
+    from demonet_tpu_torch.utils.checkpoints import (
+        load_checkpoint,
+        save_checkpoint,
+    )
+
+    det = trained_detector("cuda")
+    schedule = make_lr_schedule(_TRAIN_LR, steps_per_epoch=8)
+    recipe = make_optimizer(schedule, _TRAIN_MOMENTUM, _TRAIN_WD)
+    state = create_train_state(det, recipe)
+    step = make_train_step(det)
+    loader = [train_batch(2000 + i, 32, "cuda") for i in range(8)]
+    rows = _Rows()
+    t0 = time.perf_counter()
+    state = train_one_epoch(step, state, loader, 0, print_freq=4,
+                            lr_schedule=schedule, metrics_writer=rows)
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t0
+    losses = [r["loss"] for r in rows.rows]
+    check(state.step == 8 and len(losses) == 8
+          and all(np.isfinite(losses)), f"train_one_epoch: {rows.rows}")
+
+    nxt = train_batch(3000, 32, "cuda")
+    with tempfile.TemporaryDirectory(dir=_HERE) as tmp:
+        path = save_checkpoint(tmp, state, epoch=0)
+        fresh = ssdlite320_mobilenet_v3_large(num_classes=91, seed=1)
+        resumed, epoch, _ = load_checkpoint(
+            path, create_train_state(fresh, recipe))
+        ckpt_mb = os.path.getsize(os.path.join(path, "state.pt")) / 2**20
+    check(epoch == 0 and resumed.step == 8, "load_checkpoint")
+    with cudnn_deterministic():
+        state, m_cont = step(state, nxt)
+        resumed, m_res = make_train_step(fresh)(resumed, nxt)
+        torch.cuda.synchronize()
+    same_metrics = all(torch.equal(m_cont[k], m_res[k]) for k in m_cont)
+    theirs = fresh.model.state_dict()
+    differ = [n for n, v in det.model.state_dict().items()
+              if not torch.equal(v, theirs[n])]
+    check(same_metrics and not differ,
+          f"resumed step != continued step: metrics equal {same_metrics}, "
+          f"{len(differ)} entries differ, e.g. {differ[:3]}")
+
+    check(det.model.training, "the train step left the model in eval mode")
+    images = train_batch(4000, 32, "cuda")["images"]
+    eval_twin = ssdlite320_mobilenet_v3_large(num_classes=91, seed=2)
+    eval_twin.model.load_state_dict(det.model.state_dict())
+    with cudnn_deterministic():
+        got = make_predict_step(det)(det.model, images)
+        want = make_predict_step(eval_twin)(eval_twin.model.eval(), images)
+        torch.cuda.synchronize()
+    check(all(torch.equal(got[k], want[k]) for k in want)
+          and not det.model.training,
+          "predict after training != a fresh model in eval mode")
+    emit({"phase": "train_loop", "batches": 8, "batch": 32,
+          "print_freq": 4, "losses": losses,
+          "lr": [r["lr"] for r in rows.rows], "epoch_seconds": epoch_s,
+          "checkpoint_mb": ckpt_mb,
+          "resume_next_step_bit_equal": True,
+          "resume_loss": float(m_res["loss"]),
+          "predict_after_training_bit_equal_to_eval_model": True,
+          "valid_detections": int(got["valid"].sum())})
+
+
 def main():
     import torch
 
@@ -678,7 +1133,7 @@ def main():
     b = 32
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
-    batches = [torch.from_numpy(shapes_images(rng, b)).to(dev)
+    batches = [torch.from_numpy(shapes_images(rng, b)[0]).to(dev)
                for _ in range(4)]
     sizes = torch.tensor([[480, 640]] * b, dtype=torch.int32, device=dev)
 
@@ -1290,8 +1745,8 @@ def main():
              "sparse_topk": {"topk_impl": "sparse_pallas"}}
     steps = {m: make_predict_step(trained, **kw) for m, kw in modes.items()}
     for bs, iters in ((32, 30), (128, 12)):
-        x = torch.from_numpy(shapes_images(np.random.default_rng(bs), bs)).to(
-            dev)
+        x = torch.from_numpy(shapes_images(np.random.default_rng(bs),
+                                           bs)[0]).to(dev)
         sz = torch.tensor([[480, 640]] * bs, dtype=torch.int32, device=dev)
         with torch.inference_mode():
             fwd_ms = cuda_ms(lambda: trained.model(
@@ -1355,13 +1810,39 @@ def main():
               "top_kernels_ms": [[k, t] for t, k in per_kernel[:10]],
               "seconds_so_far": time.perf_counter() - t_start})
 
-    emit({"phase": "timing", "seconds": time.perf_counter() - t_start})
+    # -- training: the train step and loop, card against the CPU ----------
+    # the training path reaches no kernel (as in the JAX package); the
+    # counts over its timed steps are recorded, and must stay 0
+    train_check()
+    reset_counts()
+    train_out = train_e2e(read_counts)
+    check(not any(read_counts().values()),
+          f"the train step launched kernels: {read_counts()}")
+    train_loop()
+
+    # the shortest kernel the card runs: one float written by a fill,
+    # timed as every kernel here is (device_ms)
+    one = torch.empty(1, device=dev)
+    launch_floor_ms = device_ms(lambda: one.fill_(1.0), 200)
+    g_row = next(r for r in rows if r["name"] == "gather_rows_batch")
+    g_row["launch_floor_ms"] = launch_floor_ms
+    for fr in g_row["fused_path_shapes"].values():
+        per_call = [c["ms"] for c in fr["calls"].values()]
+        fr["max_call_ms_over_launch_floor"] = max(per_call) / launch_floor_ms
+    emit({"phase": "launch_floor", "launch_floor_ms": launch_floor_ms,
+          "kernel": "fill_ of one float32", "k2_fused_calls_ms": {
+              r: [c["ms"] for c in fr["calls"].values()]
+              for r, fr in g_row["fused_path_shapes"].items()}})
+
+    emit({"phase": "timing", "seconds": time.perf_counter() - t_start,
+          "train_img_per_s": {k: v["img_per_s"] for k, v in
+                              train_out.items()}})
     emit({"phase": "previous_design", "constants": True,
           "not_measured_in_this_run": True,
           "what": "K1, K3 and K4 device ms before their redesign, b32",
           "source": "PERF.md section 6", "card": "NVIDIA H100 80GB HBM3, "
           "700.00 W", "ms": _PREVIOUS_MS})
-    emit({"kernels": rows})
+    emit({"kernels": rows, "launch_floor_ms": launch_floor_ms})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

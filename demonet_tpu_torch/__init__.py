@@ -12,6 +12,9 @@ package imports on a host with no GPU, no nvcc and no triton.
     from demonet_tpu_torch.models.builders import ssdlite320_mobilenet_v3_large
     det = ssdlite320_mobilenet_v3_large(num_classes=91)      # on cuda
     dets = det.predict(images_uint8_nhwc)
+
+Training: `engine.state.create_train_state(det, make_optimizer(...))`,
+`engine.train.make_train_step(det)` and `train_one_epoch`.
 """
 
 __version__ = "0.1.0"

@@ -1,1 +1,1 @@
-"""Predict step."""
+"""Predict step, train step and epoch loop, train state and LR schedule."""

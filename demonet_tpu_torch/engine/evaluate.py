@@ -28,7 +28,9 @@ def make_predict_step(
 
     `images` are (B, H, W, 3) at the network size, uint8 or float in
     [0, 1], on the model's device. The anchors are put on that device
-    once, here.
+    once, here. The model runs in eval mode, whatever mode it was left in
+    (a train step leaves it in train mode), as the JAX package's predict
+    passes train=False.
     """
     anchors = torch.as_tensor(detector.anchors, device=detector.device)
     config = detector.config
@@ -36,6 +38,8 @@ def make_predict_step(
     def step(model: torch.nn.Module, images: torch.Tensor,
              original_sizes: Optional[torch.Tensor] = None
              ) -> Dict[str, torch.Tensor]:
+        if model.training:
+            model.eval()
         with torch.inference_mode():
             x = preprocess(images, config, resize=False)
             outputs = model(x)

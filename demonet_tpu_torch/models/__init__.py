@@ -1,2 +1,3 @@
 """Detector modules: layers, MobileNetV3 trunk, SSDLite extractor and
-head, the SSD meta-architecture and the builders."""
+head, the SSD meta-architecture, the builders, and the matcher and
+MultiBox loss that train them."""

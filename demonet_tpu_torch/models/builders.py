@@ -19,6 +19,11 @@ from demonet_tpu_torch.models.heads import SSDLiteHead
 
 Device = Union[str, torch.device, None]
 
+# SSDLite's detection BN: torch momentum 0.03 on every BN of the model
+# (the JAX package's decay 0.97, demonet_tpu/models/features.py:73 and
+# heads.py:99)
+_SSDLITE_BN_MOMENTUM = 0.03
+
 
 def resolve_device(device: Device) -> torch.device:
     """The device an entry point runs on: `cuda` unless the caller names
@@ -72,9 +77,10 @@ def ssdlite320_mobilenet_v3_large(
     device = resolve_device(device)
     aspect_ratios = [[2, 3]] * 6
     num_anchors = anchor_lib.num_anchors_per_location(aspect_ratios)
-    extractor = SSDLiteMobileNetExtractor()
+    extractor = SSDLiteMobileNetExtractor(bn_momentum=_SSDLITE_BN_MOMENTUM)
     grids = extractor.grid_sizes(size)
-    head = SSDLiteHead(extractor.out_channels, num_anchors, num_classes)
+    head = SSDLiteHead(extractor.out_channels, num_anchors, num_classes,
+                       bn_momentum=_SSDLITE_BN_MOMENTUM)
     model = SSD(extractor, head)
     _init_weights(model, torch.Generator().manual_seed(seed))
     model = model.to(device).eval()

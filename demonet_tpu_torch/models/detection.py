@@ -8,7 +8,8 @@
                                 B x (C-1) problems; global top
                                 detections_per_img; rescale to original
                                 sizes.
-  * `Detector`               -- module + config + anchors, with `predict`.
+  * `Detector`               -- module + config + anchors, with `predict`
+                                (eval mode) and `loss` (train mode).
 
 Detections come back as padded (B, detections_per_img) tensors with a
 `valid` mask, as in the JAX package. The postprocess after softmax/decode
@@ -39,6 +40,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from demonet_tpu_torch.models.losses import multibox_loss
 from demonet_tpu_torch.ops.boxes import clip_boxes_to_image, decode_boxes
 from demonet_tpu_torch.ops.gather import (
     gather_rows_batch,
@@ -66,6 +68,10 @@ class SSDConfig:
     positive_fraction: float = 0.25
     box_coder_weights: Tuple[float, float, float, float] = (10.0, 10.0, 5.0, 5.0)
 
+    @property
+    def neg_to_pos_ratio(self) -> float:
+        return (1.0 - self.positive_fraction) / self.positive_fraction
+
 
 class SSD(nn.Module):
     """extractor(images) -> multi-scale maps -> head -> dense predictions.
@@ -84,15 +90,24 @@ class SSD(nn.Module):
         return self.head(self.extractor(images.permute(0, 3, 1, 2)))
 
 
+def to_float(images: torch.Tensor) -> torch.Tensor:
+    """uint8 images scaled to [0, 1] in float32; other dtypes as they are."""
+    if images.dtype == torch.uint8:
+        return images.to(torch.float32) * np.float32(1.0 / 255.0)
+    return images
+
+
 def preprocess(images: torch.Tensor, config: SSDConfig,
                resize: bool = True) -> torch.Tensor:
     """Normalize (and optionally resize) a (B, H, W, 3) batch, NHWC.
 
     uint8 input is scaled to [0, 1] first. The resize is bilinear with
-    half-pixel centers and no antialiasing, as in the JAX package.
+    half-pixel centers and no antialiasing, as in the JAX package. The
+    mean and std are copied to the device on each call; the train step
+    keeps its own on the device and calls `to_float` and the same
+    arithmetic, so that it never waits on a host copy.
     """
-    if images.dtype == torch.uint8:
-        images = images.to(torch.float32) * np.float32(1.0 / 255.0)
+    images = to_float(images)
     mean = torch.tensor(config.image_mean, dtype=images.dtype,
                         device=images.device)
     std = torch.tensor(config.image_std, dtype=images.dtype,
@@ -459,7 +474,8 @@ _postprocess_fused.branches = collections.Counter()
 class Detector:
     """A built detector: module + config + anchors (A, 4) xyxy pixels.
 
-    The module holds its weights; `predict` takes images only.
+    The module holds its weights: `predict` and `loss` take images (and
+    ground truth) only, and each puts the module in the mode it needs.
     """
 
     model: SSD
@@ -476,8 +492,11 @@ class Detector:
         original_sizes: Optional[torch.Tensor] = None,
     ) -> Dict[str, torch.Tensor]:
         """Images (B, H, W, 3), float in [0, 1] or uint8 -> padded
-        detections, on the model's device."""
+        detections, on the model's device, in eval mode whatever mode the
+        module was left in (as the JAX package passes train=False)."""
         device = self.device
+        if self.model.training:
+            self.model.eval()
         with torch.inference_mode():
             x = preprocess(torch.as_tensor(images, device=device), self.config)
             outputs = self.model(x)
@@ -485,3 +504,27 @@ class Detector:
                 outputs["cls_logits"], outputs["bbox_regression"],
                 torch.as_tensor(self.anchors, device=device), self.config,
                 original_sizes)
+
+    def loss(
+        self,
+        images: torch.Tensor,
+        gt_boxes: torch.Tensor,
+        gt_labels: torch.Tensor,
+        gt_valid: torch.Tensor,
+    ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+        """Training loss on a padded batch of normalized images, in train
+        mode: returns (loss dict, the BN running statistics after this
+        forward, by state_dict name). The statistics are updated in place
+        in the module; the dict holds the module's own buffers."""
+        if not self.model.training:
+            self.model.train()
+        outputs = self.model(images)
+        losses = multibox_loss(
+            outputs["cls_logits"], outputs["bbox_regression"],
+            torch.as_tensor(self.anchors, device=images.device), gt_boxes,
+            gt_labels, gt_valid, iou_thresh=self.config.iou_thresh,
+            neg_to_pos_ratio=self.config.neg_to_pos_ratio,
+            box_coder_weights=self.config.box_coder_weights)
+        stats = {name: buf for name, buf in self.model.named_buffers()
+                 if name.endswith(("running_mean", "running_var"))}
+        return losses, stats

@@ -36,12 +36,13 @@ def _through(module: nn.Module, hw: Tuple[int, int]) -> Tuple[int, int]:
 class _SSDLiteExtraBlock(nn.Module):
     """1x1 project-to-half + 3x3 s2 depthwise + 1x1 expand, all ReLU6."""
 
-    def __init__(self, in_channels: int, features: int):
+    def __init__(self, in_channels: int, features: int, bn_momentum: float):
         super().__init__()
         mid = features // 2
-        self.proj = ConvBNAct(in_channels, mid, 1, act=relu6)
-        self.dw = ConvBNAct(mid, mid, 3, stride=2, groups=mid, act=relu6)
-        self.expand = ConvBNAct(mid, features, 1, act=relu6)
+        bn = dict(act=relu6, bn_momentum=bn_momentum)
+        self.proj = ConvBNAct(in_channels, mid, 1, **bn)
+        self.dw = ConvBNAct(mid, mid, 3, stride=2, groups=mid, **bn)
+        self.expand = ConvBNAct(mid, features, 1, **bn)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.expand(self.dw(self.proj(x)))
@@ -52,17 +53,19 @@ class SSDLiteMobileNetExtractor(nn.Module):
     blocks -> 6 maps. At 320x320 they are 672x20^2, 480x10^2, 512x5^2,
     256x3^2, 256x2^2, 128x1^2 (NCHW). The JAX package's width_mult,
     min_depth and small-trunk options wait for the slices that use them.
+    Every BN has eps 1e-3 and torch momentum 0.03, SSDLite's detection BN
+    (the JAX package's decay 0.97, demonet_tpu/models/features.py:73).
     """
 
-    def __init__(self):
+    def __init__(self, bn_momentum: float = 0.03):
         super().__init__()
         rows, _ = mobilenet_v3_conf("mobilenet_v3_large", reduced_tail=True)
-        self.trunk = MobileNetV3Features(rows)
+        self.trunk = MobileNetV3Features(rows, bn_momentum=bn_momentum)
         depths = [512, 256, 256, 128]
         self.out_channels = [rows[self.trunk.c4_block_index].expanded_channels,
                              6 * rows[-1].out_channels, *depths]
         self.extras = nn.ModuleList(
-            _SSDLiteExtraBlock(i, d)
+            _SSDLiteExtraBlock(i, d, bn_momentum)
             for i, d in zip(self.out_channels[1:-1], depths))
 
     def grid_sizes(self, size: Tuple[int, int]) -> List[Tuple[int, int]]:

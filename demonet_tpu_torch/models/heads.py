@@ -25,17 +25,19 @@ def _flatten_levels(outputs: Sequence[torch.Tensor], k: int) -> torch.Tensor:
 
 class SSDLiteHead(nn.Module):
     """Depthwise-separable SSD head: one SeparableConv per level for each of
-    classification (`cls`) and box regression (`reg`)."""
+    classification (`cls`) and box regression (`reg`). BN momentum 0.03,
+    as the JAX package's head (decay 0.97)."""
 
     def __init__(self, in_channels: Sequence[int], num_anchors: Sequence[int],
-                 num_classes: int):
+                 num_classes: int, bn_momentum: float = 0.03):
         super().__init__()
         self.num_classes = num_classes
         self.cls = nn.ModuleList(
-            SeparableConv(c, num_classes * a)
+            SeparableConv(c, num_classes * a, bn_momentum)
             for c, a in zip(in_channels, num_anchors))
         self.reg = nn.ModuleList(
-            SeparableConv(c, 4 * a) for c, a in zip(in_channels, num_anchors))
+            SeparableConv(c, 4 * a, bn_momentum)
+            for c, a in zip(in_channels, num_anchors))
 
     def forward(self, features: List[torch.Tensor]) -> Dict[str, torch.Tensor]:
         cls_out = [m(x) for m, x in zip(self.cls, features)]

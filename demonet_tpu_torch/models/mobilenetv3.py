@@ -96,21 +96,26 @@ class MobileNetV3Features(nn.Module):
     """Trunk: stem conv + inverted residuals + final 6x 1x1 conv (NCHW).
 
     ``c4_split=True`` returns [C4, final] where C4 is taken after the expand
-    1x1 of the last strided block. Otherwise returns [final].
+    1x1 of the last strided block. Otherwise returns [final]. BN momentum
+    0.01 by default, as in the JAX package's trunk (decay 0.99); SSDLite
+    passes 0.03.
     """
 
-    def __init__(self, configs: Sequence[BlockConfig]):
+    def __init__(self, configs: Sequence[BlockConfig],
+                 bn_momentum: float = 0.01):
         super().__init__()
         self.configs = tuple(configs)
         self.stem = ConvBNAct(3, self.configs[0].in_channels, 3, stride=2,
-                              act=hard_swish)
+                              act=hard_swish, bn_momentum=bn_momentum)
         self.blocks = nn.ModuleList(
             InvertedResidualV3(
                 cfg.in_channels, cfg.expanded_channels, cfg.out_channels,
-                cfg.kernel, cfg.stride, cfg.dilation, cfg.use_se, cfg.use_hs)
+                cfg.kernel, cfg.stride, cfg.dilation, cfg.use_se, cfg.use_hs,
+                bn_momentum=bn_momentum)
             for cfg in self.configs)
         last = self.configs[-1].out_channels
-        self.last_conv = ConvBNAct(last, 6 * last, 1, act=hard_swish)
+        self.last_conv = ConvBNAct(last, 6 * last, 1, act=hard_swish,
+                                   bn_momentum=bn_momentum)
 
     @property
     def c4_block_index(self) -> int:

@@ -3,8 +3,8 @@
 Boxes live in the last axis as (..., 4); every function takes arbitrary
 leading batch dimensions. The arithmetic follows the JAX formulas term by
 term, so IoU and clipping are bit-equal to the reference on the same
-inputs; `decode_boxes` differs only where `exp` differs between the two
-frameworks' math libraries (a few ulps).
+inputs; `decode_boxes` and `encode_boxes` differ only where `exp` and
+`log` differ between the two frameworks' math libraries (a few ulps).
 """
 
 from __future__ import annotations
@@ -54,6 +54,28 @@ def box_iou(boxes1: torch.Tensor, boxes2: torch.Tensor
     union = area1[..., :, None] + area2[..., None, :] - inter
     iou = inter / union.clamp(min=1e-9)
     return iou, union
+
+
+def encode_boxes(
+    reference_boxes: torch.Tensor,
+    anchors: torch.Tensor,
+    weights: Tuple[float, float, float, float] = DEFAULT_BOX_CODER_WEIGHTS,
+) -> torch.Tensor:
+    """Encode xyxy gt boxes as (dx, dy, dw, dh) targets w.r.t. xyxy anchors.
+
+    Both widths are guarded at 1e-8, as in the JAX package, so that padded
+    (all-zero) gt rows stay finite and `loss * mask` never meets inf * 0.
+    The weights multiply as Python scalars: no host-to-device copy.
+    """
+    wx, wy, ww, wh = weights
+    a = box_xyxy_to_cxcywh(anchors)
+    g = box_xyxy_to_cxcywh(reference_boxes)
+    a_wh = a[..., 2:].clamp(min=1e-8)
+    g_wh = g[..., 2:].clamp(min=1e-8)
+    txy = (g[..., :2] - a[..., :2]) / a_wh
+    twh = torch.log(g_wh / a_wh)
+    return torch.stack([txy[..., 0] * wx, txy[..., 1] * wy,
+                        twh[..., 0] * ww, twh[..., 1] * wh], dim=-1)
 
 
 def decode_boxes(

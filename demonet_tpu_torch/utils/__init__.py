@@ -1,1 +1,2 @@
-"""Weights carried across from the JAX package."""
+"""Weights carried across from the JAX package, checkpoints, backbone
+freezing, and training logs."""

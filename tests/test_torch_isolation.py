@@ -1,6 +1,6 @@
 """The PyTorch port stands alone: demonet_tpu_torch and chip_smoke.py import
-nothing of JAX, flax or the JAX package, import with no GPU, nvcc or
-triton, and never fall back to the CPU unasked."""
+nothing of JAX, flax, optax, orbax or the JAX package, import with no GPU,
+nvcc or triton, and never fall back to the CPU unasked."""
 
 import os
 import re
@@ -17,10 +17,11 @@ from demonet_tpu_torch.models.builders import (
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-# `import jax`, `from jax...`, any flax, or the JAX package by name; the
-# port's own name `demonet_tpu_torch` does not match
+# `import jax`, `from jax...`, optax, orbax, any flax, or the JAX package
+# by name; the port's own name `demonet_tpu_torch` does not match
 _FORBIDDEN = re.compile(
-    r"^\s*(import|from)\s+(jax\b|flax\b|demonet_tpu(?!_torch)\b)"
+    r"^\s*(import|from)\s+(jax\b|flax\b|optax\b|orbax\b"
+    r"|demonet_tpu(?!_torch)\b)"
     r"|\bflax\b|\bdemonet_tpu\.", re.MULTILINE)
 
 
@@ -34,12 +35,15 @@ def _port_sources():
 
 
 def test_import_pulls_in_no_jax():
-    code = ("import demonet_tpu_torch, demonet_tpu_torch.models.builders, "
-            "demonet_tpu_torch.engine.evaluate, "
-            "demonet_tpu_torch.ops.fused_block, "
-            "demonet_tpu_torch.utils.weights; import sys; "
+    modules = ", ".join("demonet_tpu_torch." + m for m in (
+        "models.builders", "models.losses", "models.matcher",
+        "engine.evaluate", "engine.state", "engine.train",
+        "ops.fused_block", "parallel.dist", "utils.checkpoints",
+        "utils.freeze", "utils.logging", "utils.metrics_writer",
+        "utils.weights"))
+    code = (f"import demonet_tpu_torch, {modules}; import sys; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'flax', 'demonet_tpu', 'triton')]; "
+            "('jax', 'flax', 'optax', 'orbax', 'demonet_tpu', 'triton')]; "
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=_REPO, check=True,
                    timeout=120)
@@ -58,7 +62,8 @@ def test_sources_name_no_jax():
 def test_scan_pattern_catches_what_it_should():
     for bad in ("import jax\n", "from jax import numpy\n",
                 "import flax.linen\n", "from demonet_tpu.ops import nms\n",
-                "x = demonet_tpu.models\n"):
+                "x = demonet_tpu.models\n", "import optax\n",
+                "from orbax import checkpoint\n"):
         assert _FORBIDDEN.search(bad), bad
     for fine in ("import demonet_tpu_torch\n",
                  "from demonet_tpu_torch.ops import nms\n",
