@@ -15,7 +15,8 @@ blocks 0-2 of the trained trunk, which the model does not wire in. The
 training path reaches none of the kernels, as in the JAX package. The
 script prints one JSON line per phase:
 
-  device       card, power limit, torch/CUDA versions; TF32 turned off
+  device       card, power limit, torch/CUDA versions; TF32 turned off;
+               `probe`: whether cv2 and PIL import, and their versions
   build        nvcc of csrc/*.cu, one process per source, all started
                together, and ptxas's report
   kernel_*     each hand-written kernel against its plain PyTorch version
@@ -34,7 +35,13 @@ script prints one JSON line per phase:
                P = 32 * 90 rows of A = 3,234 (trained, random weights,
                synthetic, and dense edge rows: ties at the k-th value,
                k - 1, k and k + 1 live entries, one exponent bin), with
-               the rows of each kernel branch; the fused block on blocks
+               the rows of each kernel branch; `kernel_topk_long`: the
+               top-k's long-row launch on P = 32 * 90 rows of A = 8,732
+               and 24,732 (empty, within and over the slots, dense, ties
+               at the k-th value, k - 1 / k / k + 1 live, one exponent
+               bin, live scores in the 28-score tail), its launches
+               counted and the plain version never run on a CUDA tensor;
+               the fused block on blocks
                0-2 of the trained trunk, fed its channels_last
                activations as they are, and on MobileNetV3-Small's and
                MobileNetV2's blocks (random weights, b32, CO up to 320,
@@ -65,6 +72,14 @@ script prints one JSON line per phase:
                load, the resumed state's next step bit-equal to the
                continued one's; predict after training bit-equal to a
                fresh model in eval mode
+  cli_synthetic  the train CLI (`demonet_tpu_torch.train.main`) in
+               process: one epoch of 64 synthetic frames at b32 from the
+               trained npz with a checkpoint, then --test-only --resume
+               (equal COCO summaries), --postprocess fused and -j 2 (equal
+               summary; the loader's -j 2 batches bit-equal to -j 0's),
+               with cv2 and PIL unimportable; K1 and K2 launches counted
+               over each evaluation (reset before, read after, > 0 or
+               fail); epoch and eval img/s; the step's pageable copy
   launch_floor the device time of a one-float fill, the shortest kernel
 
 then `previous_design` (K1's, K3's and K4's times before their
@@ -84,6 +99,7 @@ import subprocess
 import sys
 import time
 
+_T0 = time.perf_counter()
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _NPZ = os.path.join(_HERE, "bench_assets", "ssdlite320_shapes_trained.npz")
 _LOG = os.path.join(_HERE, "chiprun_out", "chip_smoke.jsonl")
@@ -97,6 +113,8 @@ _TF32_OPS_PER_S = 495e12
 _OPS_PER_IOU = 14
 # the sparse top-k's arguments on the main path (detection.py)
 _TOPK_K, _TOPK_SLOTS = 300, 8
+# K3's long-row launch: the anchor counts of ssd300_vgg16 and ssd512_vgg16
+_TOPK_LONG_A = (8732, 24732)
 # K1's, K3's and K4's times before their redesign (ms, torch.profiler
 # device time, b32: NMS with one block per problem and a barrier per kept
 # candidate, top-k sorting each dense row whole, the fused block with one
@@ -125,12 +143,13 @@ _QUEUE_SLEEP_CYCLES = 200_000_000
 
 def emit(obj):
     """One JSON line to stdout, and to chiprun_out/chip_smoke.jsonl, whole
-    (a long output may be cut to its end where it is read back)."""
-    line = json.dumps(obj)
-    print(line, flush=True)
+    (a long output may be cut to its end where it is read back), with the
+    seconds since the script started as `t_s`."""
+    print(json.dumps(obj), flush=True)
     os.makedirs(os.path.dirname(_LOG), exist_ok=True)
     with open(_LOG, "a") as fh:
-        fh.write(line + "\n")
+        fh.write(json.dumps(dict(obj, t_s=time.perf_counter() - _T0))
+                 + "\n")
 
 
 def cuda_ms(fn, iters, warmup=2):
@@ -470,13 +489,41 @@ def check(cond, what):
         raise AssertionError(f"chip_smoke: {what}")
 
 
-def synthetic_topk_rows(p, a, thresh, live_chunks, levels=None, seed=0):
-    """(p, a) scores below thresh except in live_chunks[r] chunks of row r
-    (chosen at random), each holding 1-6 live entries; with `levels`, live
-    values are drawn from those few values, so keys tie across chunks."""
+# the largest |kernel - plain| seen by each bit-equality check, by key
+# (a kernel's name, or name/shape), for the `kernels` line
+_MAX_ERR = {}
+
+
+def record_err(keys, got, want):
+    """Keeps the largest |got - want| over the entries (0 where they are
+    equal, infinities included) under each key; returns it."""
     import torch
 
-    gen = torch.Generator().manual_seed(seed)
+    g, w = got.to(torch.float64), want.to(torch.float64)
+    diff = torch.where(g == w, torch.zeros_like(g), (g - w).abs())
+    err = float(diff.max()) if diff.numel() else 0.0
+    for key in keys:
+        _MAX_ERR[key] = max(_MAX_ERR.get(key, 0.0), err)
+    return err
+
+
+def synthetic_topk_rows(p, a, thresh, live_chunks, levels=None, seed=0,
+                        device="cpu"):
+    """(p, a) scores below thresh except in live_chunks[r] chunks of row r
+    (chosen at random), each holding 1-6 live entries; with `levels`, live
+    values are drawn from those few values, so keys tie across chunks.
+    Drawn on `device`."""
+    import torch
+
+    with torch.device(device):
+        return _synthetic_topk_rows(p, a, thresh, live_chunks.to(device),
+                                    levels, torch.Generator(
+                                        device).manual_seed(seed))
+
+
+def _synthetic_topk_rows(p, a, thresh, live_chunks, levels, gen):
+    import torch
+
     n_chunks = -(-a // 128)
     x = torch.rand((p, a), generator=gen) * (thresh * 0.9)
     rank = torch.argsort(torch.rand((p, n_chunks), generator=gen), dim=1)
@@ -523,14 +570,22 @@ def topk_branches(rows, thresh, k, slots):
             "live_entries_max": int(live.max())}
 
 
-def spread_topk_rows(p, a, thresh, k, case, seed):
+def spread_topk_rows(p, a, thresh, k, case, seed, device="cpu"):
     """Edge rows for the select branch, every row's live entries spread
     over all chunks: `tie_at_kth` (40 entries above one value held by
     600), `live_k_minus_1`/`live_k`/`live_k_plus_1` (that many live),
-    `one_exponent_bin` (every score in [0.5, 0.5 + 2**-8))."""
+    `one_exponent_bin` (every score in [0.5, 0.5 + 2**-8)). Drawn on
+    `device`."""
     import torch
 
-    gen = torch.Generator().manual_seed(seed)
+    with torch.device(device):
+        return _spread_topk_rows(p, a, thresh, k, case,
+                                 torch.Generator(device).manual_seed(seed))
+
+
+def _spread_topk_rows(p, a, thresh, k, case, gen):
+    import torch
+
     x = torch.rand((p, a), generator=gen) * (thresh * 0.9)
     n_chunks = -(-a // 128)
     if case == "one_exponent_bin":
@@ -540,20 +595,140 @@ def spread_topk_rows(p, a, thresh, k, case, seed):
         return (half + ulps).view(torch.float32)
     n = {"tie_at_kth": 640, "live_k_minus_1": k - 1, "live_k": k,
          "live_k_plus_1": k + 1}[case]
-    for r in range(p):
-        first = (torch.arange(n_chunks) * 128 + torch.randint(
-            0, 128, (n_chunks,), generator=gen)).clamp(max=a - 1)
-        rest = torch.randperm(a, generator=gen)
-        rest = rest[~torch.isin(rest, first)]
-        cols = torch.cat([first, rest])[:n]
-        if case == "tie_at_kth":
-            x[r, cols[:40]] = 0.75 + torch.rand(40, generator=gen) * 0.2
-            x[r, cols[40:]] = 0.5
-        else:
-            vals = thresh * 2 + torch.rand(n, generator=gen) * 0.9
-            vals[: n // 4] = vals[0]        # a run of ties
-            x[r, cols] = vals
-    return x
+    # the live columns of each row: one at a random lane of every chunk,
+    # in chunk order, then the others in random order
+    first = (torch.arange(n_chunks) * 128 + torch.randint(
+        0, 128, (p, n_chunks), generator=gen)).clamp(max=a - 1)
+    order = torch.rand((p, a), generator=gen) + 1.0
+    order.scatter_(1, first, torch.arange(n_chunks).expand(p, -1) / n_chunks)
+    cols = torch.argsort(order, dim=1)[:, :n]
+    if case == "tie_at_kth":
+        vals = torch.full((p, n), 0.5)
+        vals[:, :40] = 0.75 + torch.rand((p, 40), generator=gen) * 0.2
+    else:
+        vals = thresh * 2 + torch.rand((p, n), generator=gen) * 0.9
+        vals[:, : n // 4] = vals[:, :1]        # a run of ties
+    return x.scatter_(1, cols, vals)
+
+
+def long_topk_cases(p, a, thresh, k, slots, device="cpu"):
+    """Rows of every kind for K3's long-row launch, {name: (p, a) rows
+    drawn on `device`}: empty, at most `slots` live chunks, more, a third
+    of each of 0 / slots / slots + 1, ties across chunks, fully dense,
+    the select branch's edge rows (spread_topk_rows), and live scores in
+    the tail past the last full chunk (alone: compact; with live entries
+    spread over the row: select)."""
+    import torch
+
+    gen = torch.Generator().manual_seed(a)
+    n_chunks = -(-a // 128)
+
+    def rows(live_chunks, seed, levels=None):
+        return synthetic_topk_rows(p, a, thresh, live_chunks, levels, seed,
+                                   device)
+
+    cases = {
+        "empty": rows(torch.zeros(p, dtype=torch.long), 1),
+        "within_slots": rows(
+            torch.randint(1, slots + 1, (p,), generator=gen), 2),
+        "over_slots": rows(
+            torch.randint(slots + 1, n_chunks + 1, (p,), generator=gen), 3),
+        "chunks_0_8_9": rows(
+            torch.tensor([0, slots, slots + 1]).repeat(p // 3 + 1)[:p], 4),
+        "ties_across_chunks": rows(
+            torch.randint(1, 2 * slots, (p,), generator=gen), 5,
+            levels=(0.25, 0.5, 0.75)),
+    }
+    for seed, case in enumerate(("tie_at_kth", "live_k_minus_1", "live_k",
+                                 "live_k_plus_1", "one_exponent_bin")):
+        cases[case] = spread_topk_rows(p, a, thresh, k, case, 6 + seed,
+                                       device)
+    dgen = torch.Generator(device).manual_seed(a)
+    with torch.device(device):
+        cases["dense"] = thresh * 2 + torch.rand((p, a), generator=dgen) * 0.9
+        tail = torch.rand((p, a), generator=dgen) * (thresh * 0.9)
+        tail0 = a // 128 * 128
+        tail[:, tail0:] = thresh * 2 + torch.rand(
+            (p, a - tail0), generator=dgen) * 0.9
+        tail[p // 2:, ::61] = thresh * 2 + torch.rand(
+            (p - p // 2, tail[:, ::61].shape[1]), generator=dgen) * 0.9
+    cases["tail_live"] = tail
+    return cases
+
+
+def topk_long(dev, time_it):
+    """kernel_topk_long: K3's long-row launch against topk_sparse_plain,
+    bit-equal on every entry, over P = 32 * 90 rows of each A in
+    _TOPK_LONG_A, on rows of every kind (long_topk_cases); the kernel
+    branch each case's rows take; the long-row launches counted, and the
+    plain version never run on a CUDA tensor. Returns the timings of
+    sparse and dense rows at each A (time_it(rows) -> a row of the
+    `kernels` line)."""
+    import torch
+
+    from demonet_tpu_torch.ops import topk as topk_mod
+
+    p, st = 32 * 90, 0.001
+    plain = topk_mod.topk_sparse_plain
+    on_cuda = []
+
+    def watched_plain(scores, *args):
+        if scores.is_cuda:
+            on_cuda.append(tuple(scores.shape))
+        return plain(scores, *args)
+
+    timings = {}
+    for a in _TOPK_LONG_A:
+        cases = long_topk_cases(p, a, st, _TOPK_K, _TOPK_SLOTS, dev)
+        topk_mod.topk_sparse.long_launches = 0
+        branches = {}
+        for name, rows in cases.items():
+            topk_mod.topk_sparse_plain = watched_plain
+            try:
+                k_sc, k_idx = topk_mod.topk_sparse(rows, _TOPK_K, st,
+                                                   _TOPK_SLOTS)
+            finally:
+                topk_mod.topk_sparse_plain = plain
+            p_sc, p_idx = plain(rows, _TOPK_K, st)
+            torch.cuda.synchronize()
+            record_err(("topk_sparse_long", f"topk_sparse_long/A{a}"), k_sc,
+                       p_sc)
+            check(torch.equal(k_sc.view(torch.int32), p_sc.view(torch.int32))
+                  and torch.equal(k_idx, p_idx),
+                  f"top-k long-row launch != plain at A={a} on {name} "
+                  f"({int((k_idx != p_idx).sum())} indices differ)")
+            branches[name] = topk_branches(rows, st, _TOPK_K, _TOPK_SLOTS)
+        launches = topk_mod.topk_sparse.long_launches
+        check(launches == len(cases) and not on_cuda,
+              f"A={a}: {launches} long-row launches for {len(cases)} cases, "
+              f"plain version run on CUDA tensors {on_cuda}")
+        half = p - p // 2
+        spread = ("tie_at_kth", "live_k_minus_1", "live_k", "live_k_plus_1",
+                  "one_exponent_bin")
+        check(branches["empty"]["rows_empty"] == p
+              and branches["within_slots"]["rows_compact"] == p
+              and branches["over_slots"]["rows_select"] == p
+              and branches["chunks_0_8_9"]["rows_select"] == p // 3
+              and branches["dense"]["rows_select_radix"] == p
+              and all(branches[c]["rows_select"] == p for c in spread)
+              and all(branches[c]["rows_select_radix"] == (
+                  p if c in ("tie_at_kth", "live_k_plus_1",
+                             "one_exponent_bin") else 0) for c in spread)
+              and branches["tail_live"]["rows_compact"] == p // 2
+              and branches["tail_live"]["rows_select"] == half,
+              f"A={a}: the cases do not cover every branch: {branches}")
+        emit({"phase": "kernel_topk_long", "shape": [p, a], "k": _TOPK_K,
+              "slots": _TOPK_SLOTS, "bit_equal": True,
+              "max_abs_err": _MAX_ERR[f"topk_sparse_long/A{a}"],
+              "long_row_launches": launches,
+              "plain_runs_on_cuda_tensors": len(on_cuda),
+              "tail_scores": a % 128, "branches": branches})
+        timings[f"A{a}"] = {"sparse_within_slots": time_it(
+            cases["within_slots"]), "dense": time_it(cases["dense"]),
+            "branches": {"sparse_within_slots": branches["within_slots"],
+                         "dense": branches["dense"]}}
+        del cases
+    return timings
 
 
 def word_boundary_problems(k, seed=11):
@@ -1068,6 +1243,256 @@ def train_loop():
           "valid_detections": int(got["valid"].sum())})
 
 
+# -- the train CLI ------------------------------------------------------------
+# `python -m demonet_tpu_torch.train` in process: 64 synthetic frames at the
+# network size (320x320), batch 32, from the trained npz
+_CLI_FRAMES, _CLI_BATCH = 64, 32
+# a postprocess score threshold at which the resumed model's rows are
+# sparse enough for the fused path's tiers
+_CLI_FUSED_THRESH = "0.05"
+# the CLI's own printing (MetricLogger lines, COCO summaries) goes here
+_CLI_LOG = os.path.join(_HERE, "chiprun_out", "cli_synthetic.log")
+_CLI_ARGS = ("--dataset", "synthetic", "--synthetic-size", str(_CLI_FRAMES),
+             "--batch-size", str(_CLI_BATCH), "--num-classes", "91",
+             "--npz-weights", _NPZ, "--print-freq", "1")
+
+
+@contextlib.contextmanager
+def without_modules(scratch, *names):
+    """Imports of these top-level modules fail inside the block (and work
+    again after it), in this process and in the spawn processes started
+    in it: stand-ins that raise ImportError, written under `scratch`, go
+    first on sys.path, which a spawn child takes from its parent. Shows
+    that a path, its loader workers included, runs without them."""
+    blocker = os.path.join(scratch, "blocked_modules")
+    os.makedirs(blocker, exist_ok=True)
+    for n in names:
+        with open(os.path.join(blocker, f"{n}.py"), "w") as f:
+            f.write(f"raise ImportError('{n} is blocked in this run')\n")
+    saved = {n: sys.modules.get(n) for n in names}
+    for n in names:
+        sys.modules[n] = None
+    sys.path.insert(0, blocker)
+    try:
+        yield
+    finally:
+        sys.path.remove(blocker)
+        for n, m in saved.items():
+            if m is None:
+                sys.modules.pop(n, None)
+            else:
+                sys.modules[n] = m
+
+
+def module_versions(*names):
+    """{name: version, or None where it does not import}."""
+    import importlib
+
+    out = {}
+    for n in names:
+        try:
+            out[n] = getattr(importlib.import_module(n), "__version__", "?")
+        except ImportError:
+            out[n] = None
+    return out
+
+
+def cli_synthetic(reset_counts, read_counts):
+    """cli_synthetic: the port's train CLI (`demonet_tpu_torch.train.main`)
+    on the card, in process, under cudnn.deterministic, with cv2 and PIL
+    made unimportable in the process and its loader workers (synthetic
+    frames at the network size with hflip need neither): one epoch with a
+    checkpoint, then --test-only --resume of that checkpoint (the two COCO
+    summaries must be equal), then --postprocess fused and -j 2. The
+    kernel counts and the fused path's branches are reset before each
+    evaluation and read after it: K1 (NMS) and K2 (row gather) must have
+    launched. At the default score threshold (0.001) the resumed model's
+    rows are dense and the fused path may take its fallback; at
+    --score-thresh 0.05 every batch must take a fused tier, with the
+    summary of the reference postprocess at that threshold. -j 2 must
+    give the batches of -j 0 (the worker pool against the prefetch
+    thread, on the training loader with the ssd augmentation where cv2 is
+    present). Also the cost of the step's copy of a b32 batch from
+    pageable host memory."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from demonet_tpu_torch import train as cli
+    from demonet_tpu_torch.data.loader import DetectionLoader
+    from demonet_tpu_torch.data.presets import (
+        DetectionPresetEval,
+        DetectionPresetTrain,
+    )
+    from demonet_tpu_torch.data.synthetic import SyntheticDetection
+    from demonet_tpu_torch.engine import evaluate as ev_mod
+    from demonet_tpu_torch.engine import train as train_mod
+    from demonet_tpu_torch.models import detection
+
+    spans = {"train": [], "eval": []}
+    eval_counts, eval_branches, augmentation = [], [], []
+    branches = detection._postprocess_fused.branches
+    run_evaluate, run_epoch = ev_mod.evaluate, train_mod.train_one_epoch
+
+    def timed_epoch(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run_epoch(*args, **kwargs)
+        torch.cuda.synchronize()
+        spans["train"].append(time.perf_counter() - t0)
+        return out
+
+    def counted_evaluate(*args, **kwargs):
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        out = run_evaluate(*args, **kwargs)
+        torch.cuda.synchronize()
+        spans["eval"].append(time.perf_counter() - t0)
+        eval_counts.append(read_counts())
+        eval_branches.append(dict(branches))
+        return out
+
+    def run(*argv):
+        args = cli.get_args_parser().parse_args([*_CLI_ARGS, *argv])
+        augmentation.append(args.data_augmentation)
+        spans["eval"].clear()
+        eval_counts.clear()
+        eval_branches.clear()
+        ev_mod.evaluate, train_mod.train_one_epoch = (counted_evaluate,
+                                                      timed_epoch)
+        try:
+            with cudnn_deterministic(), without_modules(tmp, "cv2", "PIL"), \
+                    open(_CLI_LOG, "a") as log, \
+                    contextlib.redirect_stdout(log):
+                print(f"== {' '.join(argv)}", flush=True)
+                ev = cli.main(args)
+        finally:
+            ev_mod.evaluate, train_mod.train_one_epoch = (run_evaluate,
+                                                          run_epoch)
+        counts = eval_counts[-1]
+        check(ev is not None and ev.stats is not None
+              and bool(np.isfinite(ev.stats).all()),
+              f"CLI {argv}: no finite COCO summary")
+        check(counts["nms_keep_batch"] > 0 and counts["gather_rows_batch"] > 0,
+              f"CLI {argv}: the evaluation launched {counts}, want K1 and K2")
+        return ev, counts, spans["eval"][-1], eval_branches[-1]
+
+    os.makedirs(os.path.dirname(_CLI_LOG), exist_ok=True)
+    if os.path.exists(_CLI_LOG):
+        os.remove(_CLI_LOG)
+    n_batches = _CLI_FRAMES // _CLI_BATCH
+    with tempfile.TemporaryDirectory(dir=_HERE) as tmp:
+        trained, c_train, s_eval, _ = run("--epochs", "1", "--output-dir",
+                                          tmp)
+        ckpt = os.path.join(tmp, "checkpoint_0")
+        check(os.path.exists(os.path.join(ckpt, "state.pt")),
+              "the CLI wrote no checkpoint")
+        resume = ("--test-only", "--resume", ckpt, "--output-dir", tmp)
+        resumed, c_resumed, s_resumed, _ = run(*resume)
+        check(np.array_equal(resumed.stats, trained.stats),
+              f"--test-only --resume summary {resumed.stats.tolist()} != "
+              f"the training run's {trained.stats.tolist()}")
+        fused, c_fused, s_fused, b_fused = run(*resume, "--postprocess",
+                                               "fused")
+        check(np.array_equal(fused.stats, resumed.stats)
+              and sum(b_fused.values()) == n_batches,
+              f"--postprocess fused: summary {fused.stats.tolist()}, "
+              f"branches {b_fused}")
+        thresh = ("--score-thresh", _CLI_FUSED_THRESH)
+        ref_t, c_ref_t, s_ref_t, b_ref_t = run(*resume, *thresh)
+        fused_t, c_fused_t, s_fused_t, b_fused_t = run(
+            *resume, *thresh, "--postprocess", "fused")
+        check(not b_ref_t and sum(b_fused_t.values()) == n_batches
+              and all(k.startswith("tier_") for k in b_fused_t),
+              f"at --score-thresh {_CLI_FUSED_THRESH} the fused evaluation "
+              f"took {b_fused_t}: want a fused tier on every batch")
+        check(np.array_equal(fused_t.stats, ref_t.stats),
+              f"--postprocess fused summary {fused_t.stats.tolist()} != "
+              f"the reference's {ref_t.stats.tolist()} at --score-thresh "
+              f"{_CLI_FUSED_THRESH}")
+        pooled, c_pooled, s_pooled, _ = run(*resume, "-j", "2")
+        check(np.array_equal(pooled.stats, resumed.stats),
+              "-j 2 evaluation summary != -j 0")
+
+    # -j 2 against -j 0 on the training loader, batch for batch
+    policy = "ssd" if module_versions("cv2")["cv2"] else "hflip"
+    ds = SyntheticDetection(n=_CLI_FRAMES, seed=0,
+                            transforms=DetectionPresetTrain(policy))
+    kw = dict(batch_size=_CLI_BATCH, image_size=(320, 320), shuffle=True,
+              drop_last=True, max_gt=100, seed=0)
+    serial = [dict(b) for b in DetectionLoader(ds, **kw)]
+    t0 = time.perf_counter()
+    pooled_b = [dict(b) for b in DetectionLoader(ds, num_workers=2, **kw)]
+    pool_s = time.perf_counter() - t0
+    check(len(serial) == len(pooled_b) == _CLI_FRAMES // _CLI_BATCH and all(
+        np.array_equal(a[k], b[k]) for a, b in zip(serial, pooled_b)
+        for k in a), f"-j 2 batches != -j 0 batches ({policy})")
+
+    # where an evaluation's time goes: the loader alone (frames drawn on
+    # the host, the prefetch thread), and the COCO accumulate and summary
+    val = SyntheticDetection(n=_CLI_FRAMES, num_classes=7, seed=1,
+                             transforms=DetectionPresetEval())
+    t0 = time.perf_counter()
+    for _ in DetectionLoader(val, _CLI_BATCH, (320, 320)):
+        pass
+    val_loader_s = time.perf_counter() - t0
+    with open(_CLI_LOG, "a") as log, contextlib.redirect_stdout(log):
+        t0 = time.perf_counter()
+        resumed.accumulate()
+        resumed.summarize()
+        coco_s = time.perf_counter() - t0
+
+    # the train step's copy of a batch: numpy (pageable) -> device
+    copy_ms = {}  # b32 images
+    for dtype in ("float32", "uint8"):
+        host = serial[0]["images"]
+        if dtype == "uint8":
+            host = np.clip(np.rint(host * 255.0), 0, 255).astype(np.uint8)
+        per = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            torch.as_tensor(host).to("cuda", non_blocking=True)
+            torch.cuda.synchronize()
+            per.append((time.perf_counter() - t0) * 1e3)
+        med = float(np.median(per))
+        copy_ms[dtype] = {"mb": host.nbytes / 1e6, "ms_median": med,
+                          "gb_per_s": host.nbytes / med / 1e6}
+
+    names = ("AP", "AP50", "AP75", "APs", "APm", "APl", "AR1", "AR10",
+             "AR100", "ARs", "ARm", "ARl")
+    summary = dict(zip(names, trained.stats.tolist()))
+    emit({"phase": "cli_synthetic", "frames": _CLI_FRAMES,
+          "batch": _CLI_BATCH, "augmentation": sorted(set(augmentation)),
+          "cv2_and_pil_blocked": "in the CLI's process and its -j 2 "
+          "loader workers, for every CLI run",
+          "epoch_seconds": spans["train"][0],
+          "epoch_img_per_s": _CLI_FRAMES / spans["train"][0],
+          "eval_seconds": {"after_training": s_eval, "resumed": s_resumed,
+                           "fused": s_fused, "j2": s_pooled},
+          "eval_img_per_s": _CLI_FRAMES / s_resumed,
+          "eval_split_seconds": {"loader_alone": val_loader_s,
+                                 "coco_accumulate_summarize": coco_s},
+          "summary": summary, "resume_summary_equal": True,
+          "fused_summary": dict(zip(names, fused.stats.tolist())),
+          "fused_summary_equal": True, "fused_branches": b_fused,
+          "fused_at_score_thresh": {
+              "score_thresh": float(_CLI_FUSED_THRESH),
+              "branches": b_fused_t, "summary_equal_to_reference": True,
+              "summary": dict(zip(names, fused_t.stats.tolist())),
+              "eval_seconds": {"reference": s_ref_t, "fused": s_fused_t}},
+          "j2_summary_equal": True,
+          "eval_launches": {"after_training": c_train, "resumed": c_resumed,
+                            "fused": c_fused,
+                            "reference_at_thresh": c_ref_t,
+                            "fused_at_thresh": c_fused_t, "j2": c_pooled},
+          "j2_train_batches_bit_equal": True, "j2_policy": policy,
+          "j2_loader_seconds": pool_s,
+          "h2d_copy_pageable_b32": copy_ms})
+
+
 def main():
     import torch
 
@@ -1118,7 +1543,8 @@ def main():
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda,
           "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
-          "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32})
+          "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+          "probe": module_versions("cv2", "PIL")})
 
     # -- build -------------------------------------------------------------
     secs = _build.build_all()
@@ -1152,10 +1578,12 @@ def main():
     def reset_counts():
         for fn in counters.values():
             fn.launches = 0
+        topk_sparse.long_launches = 0
         branches.clear()
 
     def read_counts():
-        return {name: fn.launches for name, fn in counters.items()}
+        return {**{name: fn.launches for name, fn in counters.items()},
+                "topk_sparse_long": topk_sparse.long_launches}
 
     # -- kernels against their plain versions at the main paths' shapes ----
     regimes = {}
@@ -1176,9 +1604,10 @@ def main():
             "nms_keep_batch, tiled launch")
         return keep
 
-    def check_nms(boxes, sc, t, what, tiled_too=False):
+    def check_nms(boxes, sc, t, what, tiled_too=False, err_key=None):
         """The kernel (and its tiled launch, if asked) against the plain
-        version; returns the plain keep mask and the wrapper's launch."""
+        version; returns the plain keep mask and the wrapper's launch.
+        The largest difference goes under nms_keep_batch (and err_key)."""
         p_keep = nms_keep_batch_plain(boxes, sc, t, thr)
         shape = launch_shape(boxes.shape[1])
         got = {shape: nms_keep_batch(boxes, sc, t, thr)}
@@ -1186,6 +1615,8 @@ def main():
             got["tiled"] = nms_tiled(boxes, sc, t)
         torch.cuda.synchronize()
         for name, k_keep in got.items():
+            record_err(("nms_keep_batch", err_key or "nms_keep_batch"),
+                       k_keep, p_keep)
             check(torch.equal(k_keep, p_keep),
                   f"NMS kernel ({name} launch) != plain on {what} "
                   f"({int((k_keep != p_keep).sum())} entries differ)")
@@ -1215,8 +1646,10 @@ def main():
                            ("random all valid", fused_dense)):
         for r, f in shapes.items():
             off, sc = f if regime == "random all valid" else f["nms"]
-            keep, shape = check_nms(off, sc, iou,
-                                    f"the {regime} fused K={r} problems")
+            keep, shape = check_nms(
+                off, sc, iou, f"the {regime} fused K={r} problems",
+                err_key=f"nms_keep_batch/K{r}" if regime == "trained"
+                else None)
             emit({"phase": "kernel_nms", "regime": f"{regime}, fused path",
                   "problems": list(sc.shape), "bit_equal": True,
                   "launch": shape,
@@ -1299,6 +1732,10 @@ def main():
             got = gather_rows_batch(table, idx, coord_major=cm)
             want = gather_rows_batch_plain(table, idx, coord_major=cm)
             torch.cuda.synchronize()
+            shape_key = ("gather_rows_batch/R" + name.rsplit("_r", 1)[1]
+                         if name.startswith("fused_")
+                         else "gather_rows_batch")
+            record_err(("gather_rows_batch", shape_key), got, want)
             check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
                   f"gather kernel != plain on {name}, coord_major={cm}")
         emit({"phase": "kernel_gather", "case": name,
@@ -1333,6 +1770,7 @@ def main():
         k_sc, k_idx = topk_sparse(rows, _TOPK_K, st, _TOPK_SLOTS)
         p_sc, p_idx = topk_sparse_plain(rows, _TOPK_K, st)
         torch.cuda.synchronize()
+        record_err(("topk_sparse",), k_sc, p_sc)
         check(torch.equal(k_sc.view(torch.int32), p_sc.view(torch.int32))
               and torch.equal(k_idx, p_idx),
               f"top-k kernel != plain on {name} "
@@ -1350,6 +1788,22 @@ def main():
               p_rows if c in ("tie_at_kth", "live_k_plus_1",
                               "one_exponent_bin") else 0) for c in spread),
           f"top-k cases do not cover every branch: {topk_rows}")
+
+    # K3's long-row launch: rows of the VGG SSDs' anchor counts
+    def topk_long_row(rows_in):
+        nbytes, ops = topk_work(rows_in, _TOPK_K, st)
+        bms, by = bound(nbytes, ops)
+        k_t = timed(lambda: topk_sparse(rows_in, _TOPK_K, st, _TOPK_SLOTS),
+                    50)
+        p_t = timed(lambda: topk_sparse_plain(rows_in, _TOPK_K, st), 10)
+        l_t = timed(lambda: torch.topk(rows_in, _TOPK_K, dim=-1), 10)
+        return {"ms": k_t["ms"], "plain_ms": p_t["ms"], "bound_ms": bms,
+                "bound_by": by, "library_ms": l_t["ms"],
+                "library": "torch.topk(k=300) on the same rows",
+                "bytes": nbytes, "ops": ops, "event_ms": k_t["event_ms"],
+                "ms_from": k_t["ms_from"]}
+
+    topk_long_times = topk_long(dev, topk_long_row)
 
     # fused inverted-residual block: blocks 0-2 of the trained trunk on
     # the trunk's own activations (channels_last in memory on the card,
@@ -1451,7 +1905,8 @@ def main():
     launches_by_path = {}
     dets, counts, _ = drive(make_predict_step(trained))
     check(counts == {"nms_keep_batch": 4, "gather_rows_batch": 8,
-                     "topk_sparse": 0, "fused_inverted_residual": 0},
+                     "topk_sparse": 0, "fused_inverted_residual": 0,
+                     "topk_sparse_long": 0},
           f"reference path launch counts {counts}, want 1 NMS and 2 "
           "gathers per batch")
     launches_by_path["reference"] = counts
@@ -1461,7 +1916,8 @@ def main():
 
     dets, counts, taken = drive(make_predict_step(trained, impl="fused"))
     check(counts == {"nms_keep_batch": 4, "gather_rows_batch": 8,
-                     "topk_sparse": 0, "fused_inverted_residual": 0}
+                     "topk_sparse": 0, "fused_inverted_residual": 0,
+                     "topk_sparse_long": 0}
           and len(taken) == 4,
           f"fused path launch counts {counts}, branches {taken}: want 1 NMS "
           "and 2 gathers per batch on every branch")
@@ -1487,7 +1943,8 @@ def main():
     dets, counts, _ = drive(make_predict_step(trained,
                                               topk_impl="sparse_pallas"))
     check(counts == {"nms_keep_batch": 4, "gather_rows_batch": 8,
-                     "topk_sparse": 4, "fused_inverted_residual": 0},
+                     "topk_sparse": 4, "fused_inverted_residual": 0,
+                     "topk_sparse_long": 0},
           f"sparse top-k path launch counts {counts}, want 1 top-k, 1 NMS "
           "and 2 gathers per batch")
     launches_by_path["sparse_topk"] = counts
@@ -1607,7 +2064,8 @@ def main():
     nms_fused = {}
     for r, f in fused_in.items():
         nms_fused[f"K{r}"] = {**nms_row(*f["nms"], 2),
-                              "max_abs_err": 0.0,
+                              "max_abs_err":
+                                  _MAX_ERR[f"nms_keep_batch/K{r}"],
                               "launches": tier_counts[r],
                               "launches_from": "fused path, batches on "
                                                f"tier {r}"}
@@ -1621,7 +2079,8 @@ def main():
         "source": "demonet_tpu_torch/csrc/nms.cu",
         "replaces": "demonet_tpu/ops/nms_pallas.py:80",
         "launches": total_launches("nms_keep_batch"),
-        "launches_by_path": by_path("nms_keep_batch"), "max_abs_err": 0.0,
+        "launches_by_path": by_path("nms_keep_batch"),
+        "max_abs_err": _MAX_ERR["nms_keep_batch"],
         "bit_equal": True, **{k: main[k] for k in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
         "shape": main["shape"], "detail": main,
@@ -1639,7 +2098,8 @@ def main():
         g_fused[f"R{r}"] = {
             **{key: sum(c[key] for c in fc.values())
                for key in ("ms", "plain_ms", "library_ms", "bound_ms")},
-            "bound_by": "bytes", "max_abs_err": 0.0,
+            "bound_by": "bytes",
+            "max_abs_err": _MAX_ERR[f"gather_rows_batch/R{r}"],
             "launches": 2 * tier_counts[r],
             "launches_from": f"fused path, batches on tier {r}",
             "calls": fc}
@@ -1648,7 +2108,8 @@ def main():
         "source": "demonet_tpu_torch/csrc/gather.cu",
         "replaces": "demonet_tpu/ops/gather_pallas.py:86",
         "launches": total_launches("gather_rows_batch"),
-        "launches_by_path": by_path("gather_rows_batch"), "max_abs_err": 0.0,
+        "launches_by_path": by_path("gather_rows_batch"),
+        "max_abs_err": _MAX_ERR["gather_rows_batch"],
         "bit_equal": True, **total, "bound_by": "bytes",
         "per_predict": "candidate + final gather", "calls": calls,
         "fused_path_shapes": g_fused})
@@ -1681,7 +2142,8 @@ def main():
         "source": "demonet_tpu_torch/csrc/topk.cu",
         "replaces": "demonet_tpu/ops/topk_pallas.py:188",
         "launches": total_launches("topk_sparse"),
-        "launches_by_path": by_path("topk_sparse"), "max_abs_err": 0.0,
+        "launches_by_path": by_path("topk_sparse"),
+        "max_abs_err": _MAX_ERR["topk_sparse"],
         "bit_equal": True, **{k: t_main[k] for k in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
         "shape": [p_rows, a], "k": _TOPK_K, "slots": _TOPK_SLOTS,
@@ -1689,7 +2151,16 @@ def main():
         "dense_random_weights": {
             **topk_row(topk_cases["random_weights"],
                        regimes["random"][1]["scores"]),
-            "branches": topk_rows["random_weights"]}})
+            "branches": topk_rows["random_weights"]},
+        "long_rows": {"launch": "topk_sparse_long (rows over 4,096)",
+                      "launches": total_launches("topk_sparse_long"),
+                      "launches_by_path": by_path("topk_sparse_long"),
+                      "launches_from": "the main-path runs (no ported "
+                      "model has rows over 4,096); kernel_topk_long's "
+                      "checks launch it apart",
+                      "max_abs_err": _MAX_ERR["topk_sparse_long"],
+                      "k": _TOPK_K, "slots": _TOPK_SLOTS,
+                      **topk_long_times}})
 
     # K4 with the L2 flushed before each call (block 2's 20 MB input would
     # stay in the 50 MB L2 otherwise), the flush left out of the time
@@ -1819,6 +2290,7 @@ def main():
     check(not any(read_counts().values()),
           f"the train step launched kernels: {read_counts()}")
     train_loop()
+    cli_synthetic(reset_counts, read_counts)
 
     # the shortest kernel the card runs: one float written by a fill,
     # timed as every kernel here is (device_ms)

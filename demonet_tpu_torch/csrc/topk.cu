@@ -59,6 +59,28 @@
 // The sort then sees distinct (score, index) pairs (padding carries indices
 // >= A), a total order, so the result does not depend on where in the
 // buffer an entry landed.
+//
+// Rows over 4,096 (ssd300: A = 8,732, ssd512: 24,732) take a second launch
+// shape, topk_sparse_long, with the same branches; the radix select, the
+// tie cut and the sort-and-write are one set of device functions that both
+// launch shapes call, each with its own visitor over a thread's scores
+// (registers in one, re-reads of the live chunks in the other). A
+// row of 35-99 KB does not fit in registers, so the block reads it from
+// device memory in sweeps. Warp w owns the contiguous chunks [w * span,
+// (w + 1) * span) (span = ceil(chunks / 8)) and walks them in ascending
+// order, so the per-warp prefix of the tie cut still counts in index
+// order:
+//   1. Sweep 1 reads the row once: per chunk, four ballots OR-ed into one
+//      live flag, kept in dynamic shared memory (one int per chunk, 194 at
+//      A = 24,732: no practical row limit); warp 0 scans the flags 32 at a
+//      time to give each live chunk its slot.
+//   2. No live chunk: padding.
+//   3. Compact: only the live chunks are read again, in slot order.
+//   4. Select: each radix pass and the tie pass re-read only the live
+//      chunks (a dead chunk holds nothing the select counts), from L2
+//      while the block runs. The tail past the last full chunk (A % 128,
+//      28 scores at both VGG sizes) reads as -inf and is never read past
+//      the row.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -114,6 +136,142 @@ __device__ void bitonic_sort(float* key, int* idx, int n) {
       }
       __syncthreads();
     }
+  }
+}
+
+// The helpers below are shared by both launch shapes. Each takes a
+// visitor over the scores the calling thread owns: visit(f) calls f(x, col)
+// for each of them, in ascending index order within its warp's range, and
+// every lane of a warp makes the same calls (x = -inf where there is no
+// score), so f may vote. Every thread of the block calls each helper.
+
+// All k output slots as padding.
+__device__ __forceinline__ void write_padding(float* osc, int* oidx, int k) {
+  for (int j = threadIdx.x; j < k; j += kThreads) {
+    osc[j] = -CUDART_INF_F;
+    oidx[j] = 0;
+  }
+}
+
+// The radix select: returns the key T of the k-th largest live score the
+// visitor yields, and in *r_out the number of entries equal to T among the
+// top k. Needs more than k live scores. Four passes of 8-bit digits, most
+// significant first; each warp counts into its own histogram row (zeroed by
+// the caller before the first barrier, zeroed again here after each pass),
+// one atomic per distinct digit of the 32 lanes; a suffix scan over the 256
+// bins picks the digit and the rank left inside it.
+template <class Visit>
+__device__ __forceinline__ uint32_t radix_select(
+    const Visit& visit, float thresh, int k, int* r_out,
+    unsigned (*hist)[256], int* scan, int* s_digit, int* s_rank) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  uint32_t prefix = 0u, pmask = 0u;
+  int r = k;
+  for (int shift = 24; shift >= 0; shift -= 8) {
+    visit([&](float x, int) {
+      const bool live = x > thresh;
+      const uint32_t kx = order_key(x);
+      const bool part = live && (kx & pmask) == prefix;
+      const uint32_t digit = (kx >> shift) & 0xffu;
+      const unsigned peers = __match_any_sync(kFull, part ? digit : ~0u);
+      if (part && __ffs(peers) - 1 == lane) {
+        atomicAdd(&hist[warp][digit], static_cast<unsigned>(__popc(peers)));
+      }
+    });
+    __syncthreads();
+    // suffix scan over the bins, highest digit first
+    const int d = 255 - static_cast<int>(threadIdx.x);
+    int c = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) c += hist[w][d];
+    int incl = c;
+    for (int off = 1; off < 32; off <<= 1) {
+      const int v = __shfl_up_sync(kFull, incl, off);
+      if (lane >= off) incl += v;
+    }
+    if (lane == 31) scan[warp] = incl;
+    __syncthreads();
+    for (int w = 0; w < warp; ++w) incl += scan[w];
+    if (incl >= r && incl - c < r) {
+      *s_digit = d;
+      *s_rank = r - (incl - c);
+    }
+    for (int dd = lane; dd < 256; dd += 32) hist[warp][dd] = 0u;
+    __syncthreads();
+    prefix |= static_cast<uint32_t>(*s_digit) << shift;
+    pmask |= 0xffu << shift;
+    r = *s_rank;
+  }
+  *r_out = r;
+  return prefix;
+}
+
+// The tie cut, in index order: every live entry with key > t_key and the
+// first r with key == t_key go to key/idx, in index order (every live entry
+// when t_key is the key of -inf and r is 0). Per-warp counts, a prefix over
+// the warps, then ranks by ballot inside the warp.
+template <class Visit>
+__device__ __forceinline__ void tie_cut(const Visit& visit, float thresh,
+                                        uint32_t t_key, int r, float* key,
+                                        int* idx, int* warp_gt, int* warp_eq) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const unsigned lower = (1u << lane) - 1u;
+  int gt = 0, eq = 0;
+  visit([&](float x, int) {
+    const bool live = x > thresh;
+    const uint32_t kx = order_key(x);
+    gt += __popc(__ballot_sync(kFull, live && kx > t_key));
+    eq += __popc(__ballot_sync(kFull, live && kx == t_key));
+  });
+  if (lane == 0) {
+    warp_gt[warp] = gt;
+    warp_eq[warp] = eq;
+  }
+  __syncthreads();
+  int eq_before = 0, pos0 = 0;
+  for (int w = 0; w < warp; ++w) {
+    pos0 += warp_gt[w] + min(max(r - eq_before, 0), warp_eq[w]);
+    eq_before += warp_eq[w];
+  }
+  visit([&](float x, int col) {
+    const bool live = x > thresh;
+    const uint32_t kx = order_key(x);
+    const unsigned gtb = __ballot_sync(kFull, live && kx > t_key);
+    const unsigned eqb = __ballot_sync(kFull, live && kx == t_key);
+    const bool take = ((gtb >> lane) & 1u) ||
+                      (((eqb >> lane) & 1u) &&
+                       eq_before + __popc(eqb & lower) < r);
+    const unsigned takeb = __ballot_sync(kFull, take);
+    if (take) {
+      const int pos = pos0 + __popc(takeb & lower);
+      key[pos] = x;
+      idx[pos] = col;
+    }
+    pos0 += __popc(takeb);
+    eq_before += __popc(eqb);
+  });
+}
+
+// The buffer's first `count` entries padded to `width` (a power of two)
+// with indices past every real one, sorted, and the first k written out,
+// dead entries as padding.
+__device__ __forceinline__ void sort_and_write(float* key, int* idx, int count,
+                                               int width, int a, int k,
+                                               float thresh, float* osc,
+                                               int* oidx) {
+  for (int t = count + threadIdx.x; t < width; t += kThreads) {
+    key[t] = -CUDART_INF_F;
+    idx[t] = a + t;
+  }
+  __syncthreads();
+  bitonic_sort(key, idx, width);
+  for (int j = threadIdx.x; j < k; j += kThreads) {
+    const float v = j < width ? key[j] : -CUDART_INF_F;
+    const bool live = v > thresh;
+    osc[j] = live ? v : -CUDART_INF_F;
+    oidx[j] = live ? idx[j] : 0;
   }
 }
 
@@ -183,10 +341,7 @@ topk_sparse_kernel(const float* __restrict__ scores, float* __restrict__ out_sc,
 
   // 2. nothing above thresh: all padding
   if (n_chunks == 0) {
-    for (int j = threadIdx.x; j < k; j += kThreads) {
-      osc[j] = neg_inf;
-      oidx[j] = 0;
-    }
+    write_padding(osc, oidx, k);
     return;
   }
 
@@ -209,105 +364,145 @@ topk_sparse_kernel(const float* __restrict__ scores, float* __restrict__ out_sc,
       }
     }
   } else {
-    // 4. select: T = key of the k-th largest live entry, r = ties to take
+    // 4. select: T = key of the k-th largest live entry, r = ties to take;
+    // every register, dead ones included, is visited
+    const auto visit = [&](auto f) {
+#pragma unroll
+      for (int i = 0; i < kMaxIters; ++i) f(x[i], col0 + i * 32);
+    };
     uint32_t t_key = kDeadKey;
     int r = 0;
     if (n_live > k) {
-      uint32_t prefix = 0u, pmask = 0u;
-      r = k;
-      for (int shift = 24; shift >= 0; shift -= 8) {
-#pragma unroll
-        for (int i = 0; i < kMaxIters; ++i) {
-          const bool live = x[i] > thresh;
-          const uint32_t kx = order_key(x[i]);
-          const bool part = live && (kx & pmask) == prefix;
-          const uint32_t digit = (kx >> shift) & 0xffu;
-          const unsigned peers = __match_any_sync(kFull, part ? digit : ~0u);
-          if (part && __ffs(peers) - 1 == lane) {
-            atomicAdd(&s_hist[warp][digit], static_cast<unsigned>(
-                __popc(peers)));
-          }
-        }
-        __syncthreads();
-        // suffix scan over the bins, highest digit first
-        const int d = 255 - static_cast<int>(threadIdx.x);
-        int c = 0;
-#pragma unroll
-        for (int w = 0; w < kWarps; ++w) c += s_hist[w][d];
-        int incl = c;
-        for (int off = 1; off < 32; off <<= 1) {
-          const int v = __shfl_up_sync(kFull, incl, off);
-          if (lane >= off) incl += v;
-        }
-        if (lane == 31) s_scan[warp] = incl;
-        __syncthreads();
-        for (int w = 0; w < warp; ++w) incl += s_scan[w];
-        if (incl >= r && incl - c < r) {
-          s_digit = d;
-          s_rank = r - (incl - c);
-        }
-        for (int dd = lane; dd < 256; dd += 32) s_hist[warp][dd] = 0u;
-        __syncthreads();
-        prefix |= static_cast<uint32_t>(s_digit) << shift;
-        pmask |= 0xffu << shift;
-        r = s_rank;
-      }
-      t_key = prefix;
+      t_key = radix_select(visit, thresh, k, &r, s_hist, s_scan, &s_digit,
+                           &s_rank);
     }
-
-    // the tie cut, in index order: per-warp counts, then ranks by ballot
-    int gt = 0, eq = 0;
-#pragma unroll
-    for (int i = 0; i < kMaxIters; ++i) {
-      const bool live = x[i] > thresh;
-      const uint32_t kx = order_key(x[i]);
-      gt += __popc(__ballot_sync(kFull, live && kx > t_key));
-      eq += __popc(__ballot_sync(kFull, live && kx == t_key));
-    }
-    if (lane == 0) {
-      s_warp_a[warp] = gt;
-      s_warp_b[warp] = eq;
-    }
-    __syncthreads();
-    int eq_before = 0, pos0 = 0;
-    for (int w = 0; w < warp; ++w) {
-      pos0 += s_warp_a[w] + min(max(r - eq_before, 0), s_warp_b[w]);
-      eq_before += s_warp_b[w];
-    }
-#pragma unroll
-    for (int i = 0; i < kMaxIters; ++i) {
-      const bool live = x[i] > thresh;
-      const uint32_t kx = order_key(x[i]);
-      const unsigned gtb = __ballot_sync(kFull, live && kx > t_key);
-      const unsigned eqb = __ballot_sync(kFull, live && kx == t_key);
-      const bool take = ((gtb >> lane) & 1u) ||
-                        (((eqb >> lane) & 1u) &&
-                         eq_before + __popc(eqb & lower) < r);
-      const unsigned takeb = __ballot_sync(kFull, take);
-      if (take) {
-        const int pos = pos0 + __popc(takeb & lower);
-        key[pos] = x[i];
-        idx[pos] = col0 + i * 32;
-      }
-      pos0 += __popc(takeb);
-      eq_before += __popc(eqb);
-    }
+    tie_cut(visit, thresh, t_key, r, key, idx, s_warp_a, s_warp_b);
     count = min(n_live, k);
     width = next_pow2_dev(count);
   }
-  // padding past every real index, then sort and write the first k
-  for (int t = count + threadIdx.x; t < width; t += kThreads) {
-    key[t] = neg_inf;
-    idx[t] = a + t;
+  sort_and_write(key, idx, count, width, a, k, thresh, osc, oidx);
+}
+
+// Rows of any length, read from device memory in sweeps (see the note at
+// the top). Dynamic shared memory: the live flag of each chunk (int), the
+// chunk of each compact slot (int), then the sort buffer's keys and
+// indices.
+__global__ void __launch_bounds__(kThreads)
+topk_sparse_long_kernel(const float* __restrict__ scores,
+                        float* __restrict__ out_sc, int* __restrict__ out_idx,
+                        int a, int k, float thresh, int slots, int span,
+                        int buffer) {
+  extern __shared__ int lsmem[];
+  __shared__ unsigned s_hist[kWarps][256];
+  __shared__ int s_warp_a[kWarps];
+  __shared__ int s_warp_b[kWarps];
+  __shared__ int s_scan[kWarps];
+  __shared__ int s_n_chunks, s_n_live, s_digit, s_rank;
+
+  const float neg_inf = -CUDART_INF_F;
+  const int chunks = (a + kChunk - 1) / kChunk;
+  int* s_live = lsmem;
+  int* s_slot_chunk = lsmem + chunks;
+  float* key = reinterpret_cast<float*>(lsmem + chunks + slots);
+  int* idx = lsmem + chunks + slots + buffer;
+  const float* row = scores + static_cast<int64_t>(blockIdx.x) * a;
+  float* osc = out_sc + static_cast<int64_t>(blockIdx.x) * k;
+  int* oidx = out_idx + static_cast<int64_t>(blockIdx.x) * k;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const unsigned lower = (1u << lane) - 1u;
+  const int c_begin = min(warp * span, chunks);
+  const int c_end = min(c_begin + span, chunks);
+
+  // 1. sweep 1: live entries and live chunks by ballot
+  int n_live = 0;
+  for (int c = c_begin; c < c_end; ++c) {
+    float x[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int col = c * kChunk + j * 32 + lane;
+      x[j] = col < a ? row[col] : neg_inf;
+    }
+    unsigned any = 0u;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const unsigned hit = __ballot_sync(kFull, x[j] > thresh);
+      n_live += __popc(hit);
+      any |= hit;
+    }
+    if (lane == 0) s_live[c] = any != 0u;
+  }
+  for (int d = lane; d < 256; d += 32) s_hist[warp][d] = 0u;
+  if (lane == 0) s_warp_a[warp] = n_live;
+  __syncthreads();
+  if (warp == 0) {
+    int base = 0;
+    for (int c0 = 0; c0 < chunks; c0 += 32) {
+      const int c = c0 + lane;
+      const bool live = c < chunks && s_live[c];
+      const unsigned mask = __ballot_sync(kFull, live);
+      const int slot = base + __popc(mask & lower);
+      if (live && slot < slots) s_slot_chunk[slot] = c;
+      base += __popc(mask);
+    }
+    int total = lane < kWarps ? s_warp_a[lane] : 0;
+    for (int off = 16; off > 0; off >>= 1) {
+      total += __shfl_xor_sync(kFull, total, off);
+    }
+    if (lane == 0) {
+      s_n_chunks = base;
+      s_n_live = total;
+    }
   }
   __syncthreads();
-  bitonic_sort(key, idx, width);
-  for (int j = threadIdx.x; j < k; j += kThreads) {
-    const float v = j < width ? key[j] : neg_inf;
-    const bool live = v > thresh;
-    osc[j] = live ? v : neg_inf;
-    oidx[j] = live ? idx[j] : 0;
+  const int n_chunks = s_n_chunks;
+  n_live = s_n_live;
+
+  // 2. nothing above thresh: all padding
+  if (n_chunks == 0) {
+    write_padding(osc, oidx, k);
+    return;
   }
+
+  int count, width;
+  if (n_chunks <= slots) {
+    // 3. compact: the live chunks, read again, dead entries and all, in
+    // slot order
+    count = n_chunks * kChunk;
+    width = next_pow2_dev(count);
+    for (int t = threadIdx.x; t < count; t += kThreads) {
+      const int col = s_slot_chunk[t / kChunk] * kChunk + t % kChunk;
+      const float v = col < a ? row[col] : neg_inf;
+      key[t] = v > thresh ? v : neg_inf;
+      idx[t] = col < a ? col : a + t;
+    }
+  } else {
+    // 4. select: each pass re-reads only the warp's live chunks (a dead
+    // chunk holds nothing the select counts)
+    const auto visit = [&](auto f) {
+      for (int c = c_begin; c < c_end; ++c) {
+        if (!s_live[c]) continue;
+        float x[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int col = c * kChunk + j * 32 + lane;
+          x[j] = col < a ? row[col] : neg_inf;
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) f(x[j], c * kChunk + j * 32 + lane);
+      }
+    };
+    uint32_t t_key = kDeadKey;
+    int r = 0;
+    if (n_live > k) {
+      t_key = radix_select(visit, thresh, k, &r, s_hist, s_scan, &s_digit,
+                           &s_rank);
+    }
+    tie_cut(visit, thresh, t_key, r, key, idx, s_warp_a, s_warp_b);
+    count = min(n_live, k);
+    width = next_pow2_dev(count);
+  }
+  sort_and_write(key, idx, count, width, a, k, thresh, osc, oidx);
 }
 
 int next_pow2(int x) {
@@ -320,8 +515,9 @@ int next_pow2(int x) {
 
 // scores: (p, a) f32; out_sc: (p, k) f32; out_idx: (p, k) int32. All
 // contiguous on the current device; stream is a cudaStream_t. The caller
-// guarantees 1 <= k <= min(a, slots * 128) and a <= 4,096. Returns
-// cudaGetLastError() after the launch (0 on success).
+// guarantees 1 <= k <= min(a, slots * 128) and a <= 4,096 (longer rows:
+// topk_sparse_long). Returns cudaGetLastError() after the launch (0 on
+// success).
 extern "C" int topk_sparse(const void* scores, void* out_sc, void* out_idx,
                            int p, int a, int k, float thresh, int slots,
                            void* stream) {
@@ -340,5 +536,35 @@ extern "C" int topk_sparse(const void* scores, void* out_sc, void* out_idx,
   topk_sparse_kernel<<<p, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(scores), static_cast<float*>(out_sc),
       static_cast<int*>(out_idx), a, k, thresh, slots, warp_span);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The same contract for rows of any length, read in sweeps (the long-row
+// launch). The caller guarantees 1 <= k <= min(a, slots * 128). Returns
+// cudaGetLastError() after the launch (0 on success), or the error of
+// raising the kernel's shared-memory limit where it needs more than 48 KB.
+extern "C" int topk_sparse_long(const void* scores, void* out_sc,
+                                void* out_idx, int p, int a, int k,
+                                float thresh, int slots, void* stream) {
+  if (p == 0 || k == 0) return 0;
+  if (k > a || slots < 1 || k > slots * kChunk) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int chunks = (a + kChunk - 1) / kChunk;
+  const int span = (chunks + kWarps - 1) / kWarps;
+  const int held = (slots < chunks ? slots : chunks) * kChunk;
+  const int buffer = next_pow2(held > k ? held : k);
+  const size_t smem = (static_cast<size_t>(chunks) + slots) * sizeof(int) +
+                      static_cast<size_t>(buffer) * 2 * sizeof(float);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        topk_sparse_long_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  topk_sparse_long_kernel<<<p, kThreads, smem,
+                            static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(scores), static_cast<float*>(out_sc),
+      static_cast<int*>(out_idx), a, k, thresh, slots, span, buffer);
   return static_cast<int>(cudaGetLastError());
 }

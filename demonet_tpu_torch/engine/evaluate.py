@@ -1,21 +1,30 @@
-"""Predict step (counterpart of demonet_tpu/engine/evaluate.py).
+"""Predict step and evaluation loop (counterpart of
+demonet_tpu/engine/evaluate.py; reference engine.evaluate,
+demonet/engine.py:71-111).
 
 `make_predict_step` gives the callable the JAX package jits:
 (model, images, original_sizes) -> padded detections, run eagerly under
-`torch.inference_mode()`. The evaluation loop waits for the data slice.
+`torch.inference_mode()`. `evaluate` runs it over a loader's batches,
+reads each batch's detections from the device in one transfer, and feeds
+the evaluator (COCO mAP or VOC AP) on the host.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional
+import time
+from typing import Any, Callable, Dict, List, Mapping, Optional, Union
 
+import numpy as np
 import torch
+from torch import nn
 
+from demonet_tpu_torch.engine.state import TrainState
 from demonet_tpu_torch.models.detection import (
     Detector,
     postprocess_detections,
     preprocess,
 )
+from demonet_tpu_torch.utils.logging import MetricLogger
 
 
 def make_predict_step(
@@ -49,3 +58,87 @@ def make_predict_step(
                 topk_impl=topk_impl, impl=impl)
 
     return step
+
+
+def detections_to_numpy(dets: Mapping[str, Any],
+                        image_ids: np.ndarray) -> List[Dict]:
+    """Padded detections (numpy arrays or tensors) -> per-image numpy
+    dicts of the valid rows (the reference's List[{boxes, labels,
+    scores}] shape, generalized_ssd.py:392-396)."""
+    def host(x):
+        return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+    boxes, scores = host(dets["boxes"]), host(dets["scores"])
+    labels, valid = host(dets["labels"]), host(dets["valid"])
+    out = []
+    for i in range(boxes.shape[0]):
+        v = valid[i]
+        out.append({
+            "image_id": int(image_ids[i]),
+            "boxes": boxes[i][v],
+            "scores": scores[i][v],
+            "labels": labels[i][v],
+        })
+    return out
+
+
+def _read_detections(dets: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """The padded detections on the host, in one device-to-host copy:
+    boxes, score, label and valid packed as float32 columns (labels are
+    small integers, exact in float32), split and cast back on the host."""
+    packed = torch.cat([
+        dets["boxes"].float(), dets["scores"].float()[..., None],
+        dets["labels"].float()[..., None], dets["valid"].float()[..., None],
+    ], dim=-1).cpu().numpy()
+    return {"boxes": packed[..., :4], "scores": packed[..., 4],
+            "labels": packed[..., 5].astype(np.int32),
+            "valid": packed[..., 6] > 0.5}
+
+
+def evaluate(
+    predict_step: Callable,
+    model: Union[nn.Module, TrainState],
+    data_loader,
+    evaluator,
+    mesh: Optional[Any] = None,
+    print_freq: int = 100,
+):
+    """Run inference over the loader, feed the evaluator, summarize
+    (reference engine.py:71-111). `model` is the module `predict_step`
+    takes, or a `TrainState` holding it (the JAX package takes a
+    variables tree or a TrainState). Batches are copied to the model's
+    device; the images of `batch_valid` False (the loader's padding of
+    the last batch) are dropped. `mesh` (sharded evaluation) is not
+    ported."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "evaluate(mesh=...) is not ported yet (ROADMAP Queue 1, item 10)")
+    if isinstance(model, TrainState):
+        model = model.model
+    device = next(model.parameters()).device
+
+    logger = MetricLogger(delimiter="  ")
+    header = "Test:"
+    for batch in logger.log_every(data_loader, print_freq, header):
+        t0 = time.time()
+        images = torch.as_tensor(batch["images"]).to(device, non_blocking=True)
+        sizes = torch.as_tensor(batch["original_sizes"]).to(
+            device, non_blocking=True)
+        dets = _read_detections(predict_step(model, images, sizes))
+        model_time = time.time() - t0
+
+        t0 = time.time()
+        results = detections_to_numpy(dets, np.asarray(batch["image_ids"]))
+        # drop padded images (loader pads the last partial batch)
+        if "batch_valid" in batch:
+            bv = np.asarray(batch["batch_valid"])
+            results = [r for r, ok in zip(results, bv) if ok]
+        evaluator.update(results)
+        evaluator_time = time.time() - t0
+        logger.update(model_time=model_time, evaluator_time=evaluator_time)
+
+    print("Averaged stats:", logger)
+    evaluator.synchronize_between_processes()
+    evaluator.accumulate()
+    evaluator.summarize()
+    return evaluator

@@ -1,13 +1,15 @@
 """Model builders (counterpart of demonet_tpu/models/builders.py).
 
-This slice ports the flagship, `ssdlite320_mobilenet_v3_large`. The other
-families and the classifiers wait for later slices (ROADMAP.md).
+This slice ports the flagship, `ssdlite320_mobilenet_v3_large`. The
+registry (`MODEL_REGISTRY`, `get_model`) holds all nine of the JAX
+package's names; the other families and the classifiers raise
+NotImplementedError until a later slice ports them (ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Tuple, Union
+from typing import Any, Callable, Dict, Tuple, Union
 
 import torch
 from torch import nn
@@ -93,3 +95,36 @@ def ssdlite320_mobilenet_v3_large(
     boxes = anchor_lib.default_boxes(
         grids, size, aspect_ratios, min_ratio=0.2, max_ratio=0.95)
     return Detector(model, config, boxes)
+
+
+def _unported_builder(name: str) -> Callable[..., Any]:
+    def build(**kwargs: Any) -> Detector:
+        raise NotImplementedError(
+            f"model {name!r} is not ported yet (ROADMAP Queue 1, item 9); "
+            "the port builds ssdlite320_mobilenet_v3_large")
+
+    build.__name__ = name
+    return build
+
+
+# the JAX package's nine public names (demonet_tpu/models/builders.py:220-245;
+# reference demonet/models/__init__.py + train.py:154); the other families
+# and the classifiers wait for ROADMAP Queue 1 item 9
+MODEL_REGISTRY: Dict[str, Callable[..., Any]] = {
+    "ssdlite320_mobilenet_v3_large": ssdlite320_mobilenet_v3_large,
+    **{name: _unported_builder(name) for name in (
+        "ssd300_vgg16", "ssd512_vgg16", "ssd_lite_mobilenet_v2", "pelee304",
+        "mobilenet_v2", "mobilenet_v3_large", "mobilenet_v3_small",
+        "peleenet_v1")},
+}
+
+
+def get_model(name: str, **kwargs: Any):
+    """Resolve a model by its public name (torch.hub-style registry)."""
+    try:
+        builder = MODEL_REGISTRY[name]
+    except KeyError:
+        raise ValueError(
+            f"Unknown model {name!r}; available: {sorted(MODEL_REGISTRY)}"
+        ) from None
+    return builder(**kwargs)

@@ -22,7 +22,11 @@ below-threshold values there; the two differ only in those dead slots.
 The kernel decides per row: a row whose live 128-wide chunks fit in
 `slots` of them sorts those chunks; a denser row finds its k-th largest
 score by radix select, cuts the ties at it in ascending index order and
-sorts only the k it keeps. It needs no fallback.
+sorts only the k it keeps. It needs no fallback. Rows of up to 4,096
+scores are held in registers; longer ones (the VGG SSDs' 8,732 and
+24,732 anchors) take the kernel's second launch shape, which reads the
+row from device memory in sweeps, with the same branches and the same
+result. No row length goes to the plain version on a CUDA tensor.
 
 The JAX package's `topk_sparse_xla` is the same function written in XLA
 operations, faster than the Pallas kernel on the TPU; it has no separate
@@ -40,8 +44,8 @@ import torch
 from demonet_tpu_torch.ops import _build
 
 CHUNK = 128
-# the kernel holds one row of at most this many scores in registers, 16
-# per thread (ssdlite320: A = 3,234)
+# the register launch holds one row of at most this many scores, 16 per
+# thread (ssdlite320: A = 3,234); longer rows take the long-row launch
 MAX_ROW = 4096
 
 
@@ -59,8 +63,10 @@ def topk_sparse_plain(scores: torch.Tensor, k: int,
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel():
-    fn = _build.load("topk").topk_sparse
+def _kernel(entry: str = "topk_sparse"):
+    """The C entry point: `topk_sparse` (the register launch) or
+    `topk_sparse_long` (rows over MAX_ROW)."""
+    fn = getattr(_build.load("topk"), entry)
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
                    ctypes.c_int, ctypes.c_void_p]
@@ -73,14 +79,16 @@ def topk_sparse(scores: torch.Tensor, k: int, thresh: float,
     """Exact top-k of the scores above `thresh`, per row of the last axis.
 
     Args:
-      scores: (..., A) float32, A <= 4,096; contiguous on CUDA.
+      scores: (..., A) float32, any A >= k; contiguous on CUDA.
       k: entries per row, 1 <= k <= min(A, slots * 128).
       slots: 128-wide chunks the kernel's compact branch holds; a row
         with more live chunks takes the radix select.
 
     Returns (..., k) float32 scores and (..., k) int32 indices. A CUDA
     tensor goes to the kernel `csrc/topk.cu` (and counts one in
-    `topk_sparse.launches`); a CPU tensor to `topk_sparse_plain`.
+    `topk_sparse.launches`; rows over MAX_ROW take its long-row launch
+    and count one in `topk_sparse.long_launches` too); a CPU tensor to
+    `topk_sparse_plain`.
     """
     if scores.ndim < 1:
         raise ValueError("topk_sparse: scores must have a last axis")
@@ -92,9 +100,6 @@ def topk_sparse(scores: torch.Tensor, k: int, thresh: float,
                          "raise slots")
     if not 1 <= k <= a:
         raise ValueError(f"topk_sparse: k={k} outside [1, A={a}]")
-    if a > MAX_ROW:
-        raise ValueError(f"topk_sparse: rows of A={a} exceed the kernel's "
-                         f"row limit of {MAX_ROW}")
     if scores.device.type == "cpu":
         return topk_sparse_plain(scores, k, thresh)
     if scores.device.type != "cuda":
@@ -107,11 +112,16 @@ def topk_sparse(scores: torch.Tensor, k: int, thresh: float,
     out_idx = torch.empty((*lead, k), dtype=torch.int32, device=scores.device)
     with torch.cuda.device(scores.device):
         stream = torch.cuda.current_stream().cuda_stream
-        code = _kernel()(scores.data_ptr(), out_sc.data_ptr(),
-                         out_idx.data_ptr(), p, a, k, thresh, slots, stream)
-    _build.check(code, "topk_sparse")
+        entry = "topk_sparse" if a <= MAX_ROW else "topk_sparse_long"
+        code = _kernel(entry)(scores.data_ptr(), out_sc.data_ptr(),
+                              out_idx.data_ptr(), p, a, k, thresh, slots,
+                              stream)
+    _build.check(code, entry)
     topk_sparse.launches += 1
+    if a > MAX_ROW:
+        topk_sparse.long_launches += 1
     return out_sc, out_idx
 
 
 topk_sparse.launches = 0
+topk_sparse.long_launches = 0

@@ -40,11 +40,45 @@ def test_import_pulls_in_no_jax():
         "engine.evaluate", "engine.state", "engine.train",
         "ops.fused_block", "parallel.dist", "utils.checkpoints",
         "utils.freeze", "utils.logging", "utils.metrics_writer",
-        "utils.weights"))
+        "utils.weights", "data", "data.coco", "data.coco_eval",
+        "data.group_by_aspect_ratio", "data.loader", "data.presets",
+        "data.synthetic", "data.transforms", "data.voc", "data.voc_eval",
+        "train"))
     code = (f"import demonet_tpu_torch, {modules}; import sys; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'optax', 'orbax', 'demonet_tpu', 'triton')]; "
             "assert not bad, bad")
+    subprocess.run([sys.executable, "-c", code], cwd=_REPO, check=True,
+                   timeout=120)
+
+
+_PROBE_DATASET = """
+import sys
+
+from demonet_tpu_torch.data.synthetic import SyntheticDetection
+
+_BANNED = ('jax', 'flax', 'optax', 'orbax', 'demonet_tpu', 'triton')
+
+
+class ProbeDataset(SyntheticDetection):
+    def __getitem__(self, idx, rng=None):
+        bad = [m for m in sys.modules if m.split('.')[0] in _BANNED]
+        if bad:
+            raise RuntimeError(f"loader worker imported {bad[:5]}")
+        return super().__getitem__(idx, rng)
+"""
+
+
+def test_loader_worker_imports_no_jax(tmp_path):
+    """A DetectionLoader spawn worker, which imports the port's data
+    modules to unpickle its dataset, pulls in no JAX."""
+    (tmp_path / "probe_dataset.py").write_text(_PROBE_DATASET)
+    code = (f"import sys; sys.path.insert(0, {str(tmp_path)!r})\n"
+            "from probe_dataset import ProbeDataset\n"
+            "from demonet_tpu_torch.data.loader import DetectionLoader\n"
+            "ld = DetectionLoader(ProbeDataset(n=4, image_size=(32, 32)), 2,"
+            " (32, 32), num_workers=1)\n"
+            "assert [b['batch_valid'].all() for b in ld] == [True, True]\n")
     subprocess.run([sys.executable, "-c", code], cwd=_REPO, check=True,
                    timeout=120)
 

@@ -145,7 +145,7 @@ def test_cpu_wrapper_takes_plain_version_and_counts_nothing():
     (torch.zeros(2, 300, dtype=torch.float64), 10, 8, TypeError),
     (torch.zeros(2, 300), 301, 8, ValueError),      # k > A
     (torch.zeros(2, 300), 0, 8, ValueError),
-    (torch.zeros(2, 5000), 10, 8, ValueError),      # A over the row limit
+    (torch.zeros(2, 5000), 1025, 8, ValueError),    # k > slots * 128, long row
     (torch.zeros(2, 300, device="meta"), 10, 8, ValueError),
 ])
 def test_wrapper_rejects_bad_inputs(scores, k, slots, err):
