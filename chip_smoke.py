@@ -10,10 +10,13 @@ trained weights of bench_assets/ssdlite320_shapes_trained.npz loaded by
 serving modes (the reference postprocess, the fused serving postprocess
 (impl="fused") and the chunk-skipping top-k (topk_impl="sparse_pallas")),
 and the train step and epoch loop (`make_train_step`, `train_one_epoch`,
-checkpoints). Beside them runs the fused inverted-residual kernel over
-blocks 0-2 of the trained trunk, which the model does not wire in. The
-training path reaches none of the kernels, as in the JAX package. The
-script prints one JSON line per phase:
+checkpoints); and the same predict modes and train step of the four
+other detector families (ssd300_vgg16, ssd512_vgg16,
+ssd_lite_mobilenet_v2, pelee304) at full width and their own sizes, from
+seeded random weights. Beside them runs the fused inverted-residual
+kernel over blocks 0-2 of the trained trunk, which the model does not
+wire in. The training path reaches none of the kernels, as in the JAX
+package. The script prints one JSON line per phase:
 
   device       card, power limit, torch/CUDA versions; TF32 turned off;
                `probe`: whether cv2 and PIL import, and their versions
@@ -59,6 +62,25 @@ script prints one JSON line per phase:
                with a forward/postprocess split, and the cost of the fused
                path's host read
   trace_b128   where the device time of a b128 predict goes, per mode
+  families     one line per other detector family (family_detectors:
+               seeded random weights; the BN families' statistics
+               calibrated and class head scaled so scores cross 0.5):
+               its three predict modes, 4 requests of 32 each, counts
+               reset before and read after (K1, K2, K3 in its register or
+               long-row launch: the VGG rows, A = 8,732 and 24,732, take
+               the long one), each mode bit-equal to the reference
+               postprocess on the same head outputs; head outputs on the
+               card against the CPU (B = 2, 1e-3, before the class head
+               is scaled); K3 (k = 400), K1 (K = 400) and K2 on the
+               model's own rows against their plain versions, bit-equal,
+               and timed; closed-loop img/s at b32 and b128 with the
+               forward/postprocess split (and the forward with cuDNN's
+               benchmark mode, beside the default heuristics; VGG's
+               atrous fc6 conv timed alone), a trace of the reference
+               mode at each batch; one train
+               step (ssd512 at b8, the others at b32: ms, peak memory, a
+               finite loss; card against CPU loss terms at B = 2 for
+               ssd300, the MobileNetV2 and the Pelee model)
   train_check  two train steps from the trained weights on 4 frames with
                their rectangles as gt, on the card and on the CPU: loss
                terms, every parameter and BN statistic after step 2, the
@@ -77,7 +99,9 @@ script prints one JSON line per phase:
                trained npz with a checkpoint, then --test-only --resume
                (equal COCO summaries), --postprocess fused and -j 2 (equal
                summary; the loader's -j 2 batches bit-equal to -j 0's),
-               with cv2 and PIL unimportable; K1 and K2 launches counted
+               with cv2 and PIL unimportable; then --model ssd300_vgg16
+               (seeded random weights, frames resized to 300x300 by cv2):
+               an epoch and its evaluation; K1 and K2 launches counted
                over each evaluation (reset before, read after, > 0 or
                fail); epoch and eval img/s; the step's pageable copy
   launch_floor the device time of a one-float fill, the shortest kernel
@@ -211,6 +235,30 @@ def timed(fn, iters, warmup=2):
             "ms_from": "profiler" if dev is not None else "events"}
 
 
+def trace_calls(fn, n=3):
+    """Where the device time of fn() goes: n closed-loop calls under
+    torch.profiler, {'wall_ms', 'device_busy_ms', 'device_idle_share',
+    'top_kernels_ms'} per call (the ten kernels with the most device
+    time)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    per_kernel = sorted((_dev_us(e) / n / 1e3, e.key[:60])
+                        for e in prof.key_averages())[::-1]
+    busy_ms = sum(t for t, _ in per_kernel)
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "device_idle_share": (1.0 - busy_ms / wall_ms) if busy_ms
+            else None,
+            "top_kernels_ms": [[k, t] for t, k in per_kernel[:10]]}
+
+
 def shapes_images(rng, b, size=320, max_gt=8):
     """Noise backgrounds with 1-4 filled rectangles: the kind of frame the
     trained 'shapes' weights detect things in, and the rectangles as
@@ -323,6 +371,28 @@ def gather_bytes(table, idx, out_numel):
     flat = idx.long() + n * torch.arange(b, device=idx.device)[:, None]
     rows = int(torch.unique(flat).numel())
     return rows * 16 + idx.numel() * 4 + out_numel * 4
+
+
+def gather_row(table, idx, iters=200):
+    """K2 on (table, idx) timed against its plain version and
+    torch.gather, with its byte bound: a row of the `kernels` line."""
+    import torch
+
+    from demonet_tpu_torch.ops.gather import (
+        gather_rows_batch,
+        gather_rows_batch_plain,
+    )
+
+    idx64 = idx.long()[..., None].expand(-1, -1, 4)
+    nbytes = gather_bytes(table, idx, idx.numel() * 4)
+    k_t = timed(lambda: gather_rows_batch(table, idx), iters)
+    p_t = timed(lambda: gather_rows_batch_plain(table, idx), iters)
+    l_t = timed(lambda: torch.gather(table, 1, idx64), iters)
+    return {"table": list(table.shape), "idx": list(idx.shape),
+            "ms": k_t["ms"], "plain_ms": p_t["ms"],
+            "library_ms": l_t["ms"], "bound_ms": bound(nbytes, 0)[0],
+            "bound_by": "bytes", "bytes": nbytes,
+            "event_ms": k_t["event_ms"], "ms_from": k_t["ms_from"]}
 
 
 def topk_work(rows, k, thresh):
@@ -1050,7 +1120,6 @@ def train_e2e(launch_counts):
     steps come back as launch_counts() reads them."""
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from demonet_tpu_torch.engine.state import (
         create_train_state,
@@ -1129,21 +1198,11 @@ def train_e2e(launch_counts):
           "sync_debug_mode": "error in every timed step", **out})
 
     # where the device time of a b128 train step goes
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(3):
-            step(state, batch)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / 3
-    per_kernel = sorted((_dev_us(e) / 3e3, e.key[:60])
-                        for e in prof.key_averages())[::-1]
-    busy_ms = sum(t for t, _ in per_kernel)
-    emit({"phase": "trace_train_b128", "wall_ms_per_step": wall_ms,
-          "device_busy_ms_per_step": busy_ms,
-          "device_idle_share": (1.0 - busy_ms / wall_ms) if busy_ms
-          else None,
-          "top_kernels_ms": [[k, t] for t, k in per_kernel[:10]]})
+    tr = trace_calls(lambda: step(state, batch))
+    emit({"phase": "trace_train_b128", "wall_ms_per_step": tr["wall_ms"],
+          "device_busy_ms_per_step": tr["device_busy_ms"],
+          "device_idle_share": tr["device_idle_share"],
+          "top_kernels_ms": tr["top_kernels_ms"]})
     return out
 
 
@@ -1243,6 +1302,442 @@ def train_loop():
           "valid_detections": int(got["valid"].sum())})
 
 
+# -- the other detector families ----------------------------------------------
+# the registry's four other detectors, at full width and their own sizes
+_FAMILIES = ("ssd300_vgg16", "ssd512_vgg16", "ssd_lite_mobilenet_v2",
+             "pelee304")
+# the class head's gain on the BN families (peak_class_head says why)
+_HEAD_GAIN = 5.0
+# the train step's batch per family: ssd512's b8 fits what b32 costs the
+# others; the card-against-CPU loss check at B = 2 runs for the families
+# whose CPU step takes seconds
+_FAMILY_TRAIN_BATCH = {"ssd300_vgg16": 32, "ssd512_vgg16": 8,
+                       "ssd_lite_mobilenet_v2": 32, "pelee304": 32}
+# the SGD rate per family: the VGG SSDs at the SSD paper's 1e-3 (from
+# random weights the recipe's 0.02 takes ssd300's loss from 31 to 1.3e6 in
+# one step and to nan in the next, on the CPU), the others at the recipe's
+_FAMILY_TRAIN_LR = {"ssd300_vgg16": 1e-3, "ssd512_vgg16": 1e-3,
+                    "ssd_lite_mobilenet_v2": _TRAIN_LR, "pelee304": _TRAIN_LR}
+_FAMILY_TRAIN_CPU = ("ssd300_vgg16", "ssd_lite_mobilenet_v2", "pelee304")
+# predict modes of every family: the JAX package's mode names
+_FAMILY_MODES = {"reference": {}, "fused": {"impl": "fused"},
+                 "sparse_topk": {"topk_impl": "sparse"}}
+# the counted requests' batch, and the closed-loop (batch, batches) runs
+_FAMILY_BATCH = 32
+_FAMILY_E2E = ((32, 10), (128, 5))
+
+
+def family_detectors(name, seed=0):
+    """(card detector, CPU detector) of the registry's `name` at full
+    width and size, with the same seeded random weights, in eval mode.
+
+    A random MobileNetV2 or PeleeNet in eval mode has BN statistics (0,
+    1) that match none of its activations, which shrink through the
+    trunk (the MobileNetV2 model's logits spread by 3.5e-8 on the CPU):
+    so these two get running statistics calibrated on 4 seeded frames,
+    one train-mode forward at momentum 1, which keeps that batch's
+    statistics. VGG has no BN."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from demonet_tpu_torch.models.builders import get_model
+    from demonet_tpu_torch.models.detection import Detector, preprocess
+    from demonet_tpu_torch.models.layers import BatchNorm
+
+    cpu = get_model(name, device="cpu", seed=seed)
+    bns = [m for m in cpu.model.modules() if isinstance(m, BatchNorm)]
+    if bns:
+        frames = shapes_images(np.random.default_rng(seed), 4,
+                               cpu.config.size[0])[0]
+        momenta = [m.momentum for m in bns]
+        for m in bns:
+            m.momentum = 1.0
+        with torch.no_grad():
+            cpu.model.train()(preprocess(torch.from_numpy(frames),
+                                         cpu.config, resize=False))
+        for m, mom in zip(bns, momenta):
+            m.momentum = mom
+        cpu.model.eval()
+    card = Detector(copy.deepcopy(cpu.model).to("cuda"), cpu.config,
+                    cpu.anchors)
+    return card, cpu
+
+
+def peak_class_head(det):
+    """The class head's last convs times _HEAD_GAIN, on a BN family: even
+    calibrated, its random head spreads the logits by 0.4-0.6, so every
+    softmax score sits near 1/21, below the models' 0.5 threshold, and
+    nothing would reach NMS; x5 puts 0.8-2.5 % of them above it (500-1,500
+    an image, on the CPU), as a trained head's peaks do. VGG's random
+    scores cross its 0.01 threshold at 41-45 % of the entries as they
+    are; its head is left alone. Returns whether the head was scaled."""
+    import torch
+
+    from demonet_tpu_torch.models.layers import BatchNorm
+
+    if not any(isinstance(m, BatchNorm) for m in det.model.modules()):
+        return False
+    with torch.no_grad():
+        for m in det.model.head.cls:
+            conv = getattr(m, "pw", m)
+            conv.weight.mul_(_HEAD_GAIN)
+            conv.bias.mul_(_HEAD_GAIN)
+    return True
+
+
+def family_batch(seed, b, size, device):
+    """A seeded train batch of shapes frames at `size` with their boxes."""
+    import numpy as np
+    import torch
+
+    imgs, gt = shapes_images(np.random.default_rng(seed), b, size)
+    return {k: torch.from_numpy(v).to(device)
+            for k, v in {"images": imgs, **gt}.items()}
+
+
+def family_train(name):
+    """One family's train step on the card: closed-loop ms per step at its
+    batch, peak memory, a finite loss; for _FAMILY_TRAIN_CPU, the loss
+    terms of one step at B = 2 on the card and on the CPU from the same
+    weights, within the flagship's tolerance."""
+    import numpy as np
+    import torch
+
+    from demonet_tpu_torch.engine.state import (
+        create_train_state,
+        make_optimizer,
+    )
+    from demonet_tpu_torch.engine.train import make_train_step
+    from demonet_tpu_torch.models.builders import get_model
+
+    bs, lr = _FAMILY_TRAIN_BATCH[name], _FAMILY_TRAIN_LR[name]
+    det = get_model(name, seed=0)
+    size = det.config.size[0]
+    state = create_train_state(det, make_optimizer(
+        lr, _TRAIN_MOMENTUM, _TRAIN_WD))
+    step = make_train_step(det)
+    batch = family_batch(5000, bs, size, "cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(2):
+        step(state, batch)
+    torch.cuda.synchronize()
+    per_step, losses = [], []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        with sync_errors():
+            state, m = step(state, batch)
+        torch.cuda.synchronize()
+        per_step.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+    check(all(np.isfinite(losses)), f"{name} train step: loss {losses}")
+    q1, med, q3 = np.percentile(per_step, [25, 50, 75])
+    out = {"batch": bs, "lr": lr, "ms_per_step_median": med,
+           "ms_per_step_q1_q3": [q1, q3], "n": len(per_step),
+           "img_per_s": bs / med * 1e3, "losses": losses,
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+    del state, step, det
+    if name in _FAMILY_TRAIN_CPU:
+        terms = {}
+        for where in ("cuda", "cpu"):
+            d = get_model(name, device=where, seed=1)
+            st = create_train_state(d, make_optimizer(
+                lr, _TRAIN_MOMENTUM, _TRAIN_WD))
+            _, m = make_train_step(d)(st, family_batch(5001, 2, size, where))
+            terms[where] = {k: float(v) for k, v in m.items()}
+        rel = {k: abs(terms["cuda"][k] - terms["cpu"][k]) / abs(terms["cpu"][k])
+               for k in terms["cpu"]}
+        check(max(rel.values()) <= _TRAIN_LOSS_RTOL,
+              f"{name}: card against CPU loss terms at B = 2: {terms}")
+        out["card_vs_cpu_b2"] = {"loss_card": terms["cuda"],
+                                 "loss_cpu": terms["cpu"],
+                                 "loss_rel_err": rel,
+                                 "loss_rtol": _TRAIN_LOSS_RTOL}
+    return out
+
+
+def families(reset_counts, read_counts):
+    """families: the four other detectors on the card, each with seeded
+    random weights at full width and its own size (family_detectors):
+
+      * predict through `make_predict_step` in the three modes, 4 requests
+        of 32, counts reset just before and read just after each mode
+        (K1 NMS, K2 gathers, K3 in its register and long-row launches),
+        every mode's padded detections bit-equal to the reference
+        postprocess's on the same head outputs; then closed-loop img/s at
+        b32 and b128 with the forward / postprocess split;
+      * the head outputs on the card against the CPU's, 2 frames, 1e-3;
+      * K3 (k = 400: the long-row launch on the VGG rows, the register
+        launch on the others) and K1 (K = 400) and K2 on the rows the
+        model gave, bit-equal to their plain versions, and timed;
+      * one train step per family (family_train).
+
+    Returns {'launches_by_path', 'kernels': per kernel name, the rows of
+    the family shapes for the `kernels` line}."""
+    import numpy as np
+    import torch
+
+    from demonet_tpu_torch.engine.evaluate import make_predict_step
+    from demonet_tpu_torch.models import detection
+    from demonet_tpu_torch.models.detection import (
+        _NEG_INF,
+        postprocess_detections,
+        preprocess,
+    )
+    from demonet_tpu_torch.ops.gather import (
+        gather_rows_batch,
+        gather_rows_batch_plain,
+    )
+    from demonet_tpu_torch.ops.nms import (
+        launch_shape,
+        nms_keep_batch,
+        nms_keep_batch_plain,
+    )
+    from demonet_tpu_torch.ops.topk import (
+        MAX_ROW,
+        topk_sparse,
+        topk_sparse_plain,
+    )
+
+    b, thr = _FAMILY_BATCH, _NEG_INF / 2
+    launches_by_path = {}
+    kernels = {"nms_keep_batch": {}, "gather_rows_batch": {},
+               "topk_sparse": {}, "topk_sparse_long": {}}
+    branches = detection._postprocess_fused.branches
+    for fi, name in enumerate(_FAMILIES):
+        torch.cuda.reset_peak_memory_stats()
+        det, cpu = family_detectors(name)
+        cfg, size = det.config, det.config.size[0]
+
+        # -- the card against the CPU, before the head is scaled ----------
+        rng = np.random.default_rng(100 + fi)
+        x2 = torch.from_numpy(shapes_images(rng, 2, size)[0])
+        with torch.inference_mode():
+            on_card = det.model(preprocess(x2.cuda(), cfg, resize=False))
+            on_cpu = cpu.model(preprocess(x2, cfg, resize=False))
+        head_err = {key: float((on_card[key].cpu() - on_cpu[key]).abs().max())
+                    for key in on_cpu}
+        check(all(e <= 1e-3 for e in head_err.values()),
+              f"{name}: card against CPU head outputs {head_err}")
+        del cpu, on_card, on_cpu
+        peaked = peak_class_head(det)
+        d, k, c = cfg.detections_per_img, cfg.topk_candidates, cfg.num_classes
+        anchors = torch.as_tensor(det.anchors, device="cuda")
+        a = anchors.shape[0]
+        long_rows = a > MAX_ROW
+        xs = [torch.from_numpy(shapes_images(rng, b, size)[0]).cuda()
+              for _ in range(4)]
+        sizes = torch.tensor([[480, 640]] * b, dtype=torch.int32,
+                             device="cuda")
+
+        # -- predict, mode by mode, counted -------------------------------
+        paths = {}
+        for mode, kw in _FAMILY_MODES.items():
+            step = make_predict_step(det, **kw)
+            step(det.model, xs[0], sizes)
+            torch.cuda.synchronize()
+            reset_counts()
+            dets = [step(det.model, x, sizes) for x in xs]
+            torch.cuda.synchronize()
+            counts = read_counts()
+            taken = dict(branches)
+            sparse = mode == "sparse_topk"
+            want = {"nms_keep_batch": 4, "gather_rows_batch": 8,
+                    "topk_sparse": 4 if sparse else 0,
+                    "fused_inverted_residual": 0,
+                    "topk_sparse_long": 4 if sparse and long_rows else 0}
+            check(counts == want and (mode != "fused"
+                                      or sum(taken.values()) == 4),
+                  f"{name} {mode}: launches {counts}, want {want}; "
+                  f"branches {taken}")
+            launches_by_path[f"{name}/{mode}"] = counts
+            n_valid = []
+            for dd in dets:
+                v = dd["valid"]
+                check(dd["boxes"].shape == (b, d, 4)
+                      and dd["labels"].dtype == torch.int32
+                      and bool(torch.isfinite(dd["boxes"]).all())
+                      and bool((dd["scores"][v] > cfg.score_thresh).all())
+                      and bool((dd["labels"][v] >= 1).all())
+                      and bool((dd["labels"][v] < c).all()),
+                      f"{name} {mode}: detections")
+                n_valid.append(int(v.sum()))
+            same = True
+            for x in xs:
+                with torch.inference_mode():
+                    o = det.model(preprocess(x, cfg, resize=False))
+                    args = (o["cls_logits"], o["bbox_regression"], anchors,
+                            cfg, sizes)
+                    ref = postprocess_detections(*args)
+                    got = postprocess_detections(*args, **kw)
+                same &= all(torch.equal(got[key], ref[key]) for key in ref)
+            check(same, f"{name} {mode}: detections != the reference "
+                  "postprocess's on the same head outputs")
+            paths[mode] = {"launches": counts,
+                           "k3_register_launches": counts["topk_sparse"]
+                           - counts["topk_sparse_long"],
+                           "valid_detections": n_valid,
+                           "bit_equal_to_reference_postprocess": True,
+                           **({"branches": taken} if mode == "fused"
+                              else {})}
+
+        # -- the kernels on the model's own rows ---------------------------
+        with torch.inference_mode():
+            out = det.model(preprocess(xs[0], cfg, resize=False))
+            cand = head_to_candidates(det, out)
+        rows = cand["fg"].reshape(-1, a)                  # (B x (C-1), A)
+        p = rows.shape[0]
+        slots = max(8, -(-k // 128))
+        key3 = "topk_sparse_long" if long_rows else "topk_sparse"
+        k_sc, k_idx = topk_sparse(rows, k, cfg.score_thresh, slots)
+        p_sc, p_idx = topk_sparse_plain(rows, k, cfg.score_thresh)
+        torch.cuda.synchronize()
+        record_err(("topk_sparse", key3, f"{key3}/{name}"), k_sc, p_sc)
+        check(torch.equal(k_sc.view(torch.int32), p_sc.view(torch.int32))
+              and torch.equal(k_idx, p_idx),
+              f"{name}: K3 != plain on the model's rows")
+        nb, ns = cand["cand_boxes"], cand["cand_sc"]
+        keep = nms_keep_batch(nb, ns, cfg.nms_thresh, thr)
+        p_keep = nms_keep_batch_plain(nb, ns, cfg.nms_thresh, thr)
+        torch.cuda.synchronize()
+        record_err(("nms_keep_batch", f"nms_keep_batch/{name}"), keep, p_keep)
+        check(torch.equal(keep, p_keep), f"{name}: K1 != plain at K={k}")
+        final_idx = torch.sort(ns.reshape(b, -1), dim=-1, descending=True,
+                               stable=True)[1][:, :d].to(torch.int32)
+        g_cases = {"candidate": (cand["boxes"].contiguous(), cand["top_idx"]),
+                   "final": (nb.reshape(b, -1, 4).contiguous(),
+                             final_idx.contiguous())}
+        for gname, (table, idx) in g_cases.items():
+            got = gather_rows_batch(table, idx)
+            ref = gather_rows_batch_plain(table, idx)
+            torch.cuda.synchronize()
+            record_err(("gather_rows_batch", f"gather_rows_batch/{name}"),
+                       got, ref)
+            check(torch.equal(got, ref), f"{name}: K2 != plain ({gname})")
+
+        # -- their times ---------------------------------------------------
+        def launches_of(kernel, name=name):
+            return sum(v[kernel] for pth, v in launches_by_path.items()
+                       if pth.startswith(name + "/"))
+
+        nbytes, ops = topk_work(rows, k, cfg.score_thresh)
+        bms, by = bound(nbytes, ops)
+        t_k = timed(lambda: topk_sparse(rows, k, cfg.score_thresh, slots), 20)
+        t_p = timed(lambda: topk_sparse_plain(rows, k, cfg.score_thresh), 5)
+        t_l = timed(lambda: torch.topk(rows, k, dim=-1), 10)
+        kernels[key3][name] = {
+            "shape": [p, a], "k": k, "slots": slots,
+            "launch": "topk_sparse_long" if long_rows else "register",
+            "ms": t_k["ms"], "plain_ms": t_p["ms"], "bound_ms": bms,
+            "bound_by": by, "library_ms": t_l["ms"],
+            "library": f"torch.topk(k={k}) on the same rows",
+            "launches": launches_of("topk_sparse_long" if long_rows
+                                    else "topk_sparse"),
+            "max_abs_err": _MAX_ERR[f"{key3}/{name}"],
+            "branches": topk_branches(rows, cfg.score_thresh, k, slots),
+            "bytes": nbytes, "ops": ops, "event_ms": t_k["event_ms"],
+            "ms_from": t_k["ms_from"]}
+        nbytes, ops = nms_work(keep, ns, thr)
+        bms, by = bound(nbytes, ops)
+        t_k = timed(lambda: nms_keep_batch(nb, ns, cfg.nms_thresh, thr), 20)
+        t_p = timed(lambda: nms_keep_batch_plain(nb, ns, cfg.nms_thresh, thr),
+                    2, 1)
+        kernels["nms_keep_batch"][name] = {
+            "shape": list(ns.shape), "launch": launch_shape(k),
+            "ms": t_k["ms"], "plain_ms": t_p["ms"], "bound_ms": bms,
+            "bound_by": by, "library_ms": None,
+            "launches": launches_of("nms_keep_batch"),
+            "max_abs_err": _MAX_ERR[f"nms_keep_batch/{name}"],
+            "valid": int((ns > thr).sum()), "kept": int(keep.sum()),
+            "bytes": nbytes, "ops": ops, "event_ms": t_k["event_ms"],
+            "ms_from": t_k["ms_from"]}
+        calls = {gname: gather_row(table, idx, 50)
+                 for gname, (table, idx) in g_cases.items()}
+        kernels["gather_rows_batch"][name] = {
+            **{key: sum(cl[key] for cl in calls.values())
+               for key in ("ms", "plain_ms", "library_ms", "bound_ms")},
+            "bound_by": "bytes", "launches": launches_of("gather_rows_batch"),
+            "max_abs_err": _MAX_ERR[f"gather_rows_batch/{name}"],
+            "per_predict": "candidate + final gather", "calls": calls}
+        del out, cand, rows
+
+        # -- closed-loop img/s ---------------------------------------------
+        e2e, traces, fc6_ms = {}, {}, {}
+        for bs, iters in _FAMILY_E2E:
+            x = torch.from_numpy(shapes_images(np.random.default_rng(bs), bs,
+                                               size)[0]).cuda()
+            sz = torch.tensor([[480, 640]] * bs, dtype=torch.int32,
+                              device="cuda")
+            with torch.inference_mode():
+                fwd_ms = cuda_ms(lambda: det.model(
+                    preprocess(x, cfg, resize=False)), 3, 1)
+                # the same forward with cuDNN choosing its algorithms by
+                # timing them (benchmark mode) instead of by heuristics
+                torch.backends.cudnn.benchmark = True
+                try:
+                    fwd_bench_ms = cuda_ms(lambda: det.model(
+                        preprocess(x, cfg, resize=False)), 3, 2)
+                finally:
+                    torch.backends.cudnn.benchmark = False
+                fc6 = getattr(det.model.extractor, "fc6", None)
+                if fc6 is not None:   # VGG's atrous conv, timed alone
+                    seen = []
+                    hook = fc6.register_forward_pre_hook(
+                        lambda m, args: seen.append(args[0]))
+                o = det.model(preprocess(x, cfg, resize=False))
+                if fc6 is not None:
+                    hook.remove()
+                    fc6_ms[f"b{bs}"] = cuda_ms(lambda: fc6(seen[0]), 3, 1)
+                    del seen
+            for mode, kw in _FAMILY_MODES.items():
+                step = make_predict_step(det, **kw)
+                step(det.model, x, sz)
+                torch.cuda.synchronize()
+                branches.clear()
+                per_batch = []
+                for _ in range(iters):
+                    t0 = time.perf_counter()
+                    step(det.model, x, sz)
+                    torch.cuda.synchronize()
+                    per_batch.append((time.perf_counter() - t0) * 1e3)
+                q1, med, q3 = np.percentile(per_batch, [25, 50, 75])
+                taken = dict(branches)
+                with torch.inference_mode():
+                    post_ms = cuda_ms(lambda: postprocess_detections(
+                        o["cls_logits"], o["bbox_regression"], anchors, cfg,
+                        sz, **kw), 3, 1)
+                if mode == "reference":   # where a batch's time goes
+                    traces[f"b{bs}"] = trace_calls(
+                        lambda: step(det.model, x, sz), 2)
+                e2e[f"{mode}_b{bs}"] = {
+                    "img_per_s": bs / med * 1e3, "ms_per_batch_median": med,
+                    "ms_per_batch_q1_q3": [q1, q3], "n": iters,
+                    "forward_ms": fwd_ms,
+                    "forward_ms_cudnn_benchmark": fwd_bench_ms,
+                    "postprocess_ms": post_ms,
+                    **({"branches": taken} if mode == "fused" else {})}
+            del o, x
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        del det
+        torch.cuda.empty_cache()
+        train = family_train(name)
+        emit({"phase": "families", "model": name, "size": [size, size],
+              "classes": c, "anchors": a, "topk_candidates": k,
+              "detections_per_img": d, "score_thresh": cfg.score_thresh,
+              "weights": "seeded random" + (
+                  f"; BN statistics calibrated, class head x{_HEAD_GAIN} "
+                  "after the card-against-CPU check" if peaked else ""),
+              "paths": paths, "head_max_abs_err_vs_cpu": head_err,
+              "head_limit": 1e-3, "e2e": e2e,
+              "trace_reference": traces,
+              **({"fc6_forward_ms": fc6_ms} if fc6_ms else {}),
+              "predict_peak_mem_gib": peak,
+              "train": train})
+    return {"launches_by_path": launches_by_path, "kernels": kernels}
+
+
 # -- the train CLI ------------------------------------------------------------
 # `python -m demonet_tpu_torch.train` in process: 64 synthetic frames at the
 # network size (320x320), batch 32, from the trained npz
@@ -1255,6 +1750,11 @@ _CLI_LOG = os.path.join(_HERE, "chiprun_out", "cli_synthetic.log")
 _CLI_ARGS = ("--dataset", "synthetic", "--synthetic-size", str(_CLI_FRAMES),
              "--batch-size", str(_CLI_BATCH), "--num-classes", "91",
              "--npz-weights", _NPZ, "--print-freq", "1")
+# the same frames through another family: ssd300_vgg16, seeded random
+# weights, the synthetic set's 7 classes
+_CLI_VGG_ARGS = ("--dataset", "synthetic", "--synthetic-size",
+                 str(_CLI_FRAMES), "--batch-size", str(_CLI_BATCH),
+                 "--print-freq", "1")
 
 
 @contextlib.contextmanager
@@ -1354,8 +1854,8 @@ def cli_synthetic(reset_counts, read_counts):
         eval_branches.append(dict(branches))
         return out
 
-    def run(*argv):
-        args = cli.get_args_parser().parse_args([*_CLI_ARGS, *argv])
+    def run(*argv, base=_CLI_ARGS, blocked=("cv2", "PIL")):
+        args = cli.get_args_parser().parse_args([*base, *argv])
         augmentation.append(args.data_augmentation)
         spans["eval"].clear()
         eval_counts.clear()
@@ -1363,7 +1863,7 @@ def cli_synthetic(reset_counts, read_counts):
         ev_mod.evaluate, train_mod.train_one_epoch = (counted_evaluate,
                                                       timed_epoch)
         try:
-            with cudnn_deterministic(), without_modules(tmp, "cv2", "PIL"), \
+            with cudnn_deterministic(), without_modules(tmp, *blocked), \
                     open(_CLI_LOG, "a") as log, \
                     contextlib.redirect_stdout(log):
                 print(f"== {' '.join(argv)}", flush=True)
@@ -1415,6 +1915,11 @@ def cli_synthetic(reset_counts, read_counts):
         pooled, c_pooled, s_pooled, _ = run(*resume, "-j", "2")
         check(np.array_equal(pooled.stats, resumed.stats),
               "-j 2 evaluation summary != -j 0")
+        # another family: ssd300_vgg16 from seeded random weights, its
+        # 300x300 frames resized from the synthetic 320x320 by cv2
+        vgg, c_vgg, s_vgg, _ = run(
+            "--model", "ssd300_vgg16", "--epochs", "1", "--output-dir",
+            os.path.join(tmp, "vgg"), base=_CLI_VGG_ARGS, blocked=())
 
     # -j 2 against -j 0 on the training loader, batch for batch
     policy = "ssd" if module_versions("cv2")["cv2"] else "hflip"
@@ -1488,6 +1993,11 @@ def cli_synthetic(reset_counts, read_counts):
                             "fused": c_fused,
                             "reference_at_thresh": c_ref_t,
                             "fused_at_thresh": c_fused_t, "j2": c_pooled},
+          "ssd300_vgg16": {
+              "args": " ".join(_CLI_VGG_ARGS), "epoch_seconds":
+              spans["train"][-1], "eval_seconds": s_vgg,
+              "eval_launches": c_vgg,
+              "summary": dict(zip(names, vgg.stats.tolist()))},
           "j2_train_batches_bit_equal": True, "j2_policy": policy,
           "j2_loader_seconds": pool_s,
           "h2d_copy_pageable_b32": copy_ms})
@@ -2044,18 +2554,6 @@ def main():
                                            50)["ms"]
         return row
 
-    def gather_row(table, idx):
-        idx64 = idx.long()[..., None].expand(-1, -1, 4)
-        nbytes = gather_bytes(table, idx, idx.numel() * 4)
-        k_t = timed(lambda: gather_rows_batch(table, idx), 200)
-        p_t = timed(lambda: gather_rows_batch_plain(table, idx), 200)
-        l_t = timed(lambda: torch.gather(table, 1, idx64), 200)
-        return {"table": list(table.shape), "idx": list(idx.shape),
-                "ms": k_t["ms"], "plain_ms": p_t["ms"],
-                "library_ms": l_t["ms"], "bound_ms": bound(nbytes, 0)[0],
-                "bound_by": "bytes", "bytes": nbytes,
-                "event_ms": k_t["event_ms"], "ms_from": k_t["ms_from"]}
-
     tier_counts = {r: fused_branches.count(f"tier_{r}") for r in (1024, 2048)}
     rows = []
     nms_rows = {name: nms_row(c["cand_boxes"], c["cand_sc"], 3,
@@ -2258,28 +2756,35 @@ def main():
           **e2e, "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30})
 
     # where the device time of a b128 predict goes, and how idle it is
-    from torch.profiler import ProfilerActivity, profile
-
     for mode in ("reference", "fused"):
-        step = steps[mode]
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(3):
-                step(trained.model, x, sz)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3 / 3
-        per_kernel = sorted(
-            (_dev_us(e) / 3e3, e.key[:60])
-            for e in prof.key_averages())[::-1]
-        busy_ms = sum(t for t, _ in per_kernel)
+        tr = trace_calls(lambda: steps[mode](trained.model, x, sz))
         emit({"phase": "trace_b128", "mode": mode,
-              "wall_ms_per_batch": wall_ms,
-              "device_busy_ms_per_batch": busy_ms,
-              "device_idle_share": (1.0 - busy_ms / wall_ms) if busy_ms
-              else None,
-              "top_kernels_ms": [[k, t] for t, k in per_kernel[:10]],
+              "wall_ms_per_batch": tr["wall_ms"],
+              "device_busy_ms_per_batch": tr["device_busy_ms"],
+              "device_idle_share": tr["device_idle_share"],
+              "top_kernels_ms": tr["top_kernels_ms"],
               "seconds_so_far": time.perf_counter() - t_start})
+
+    # -- the other detector families, each path counted -------------------
+    fam = families(reset_counts, read_counts)
+    launches_by_path.update(fam["launches_by_path"])
+    for r in rows:
+        r["launches"] = total_launches(r["name"])
+        r["launches_by_path"] = by_path(r["name"])
+        if r["name"] != "fused_inverted_residual":
+            r["family_shapes"] = fam["kernels"][r["name"]]
+    long_row = next(r for r in rows if r["name"] == "topk_sparse")["long_rows"]
+    check(all(launches_by_path[f"{n}/sparse_topk"]["topk_sparse_long"] > 0
+              for n in ("ssd300_vgg16", "ssd512_vgg16")),
+          "the long-row launch did not run on the VGG sparse top-k paths")
+    long_row.update({
+        "launches": total_launches("topk_sparse_long"),
+        "launches_by_path": by_path("topk_sparse_long"),
+        "launches_from": "the main-path runs: the VGG families' sparse "
+                         "top-k paths; kernel_topk_long's checks launch it "
+                         "apart",
+        "max_abs_err": _MAX_ERR["topk_sparse_long"],
+        "family_rows": fam["kernels"]["topk_sparse_long"]})
 
     # -- training: the train step and loop, card against the CPU ----------
     # the training path reaches no kernel (as in the JAX package); the

@@ -8,9 +8,10 @@ variable tree of the JAX package (`conv`, `bn`, `expand_conv`,
 `BatchNorm` is nn.BatchNorm2d in eval mode (running statistics) and
 follows the JAX package's rule in train mode. `eps` and `momentum` are
 per module, momentum in torch's sense (the JAX package's decay is 1 -
-momentum): 1e-3 and 0.03 everywhere on the SSDLite path. The activations
-are written out as the JAX formulas, not with F.hardsigmoid/F.hardswish,
-whose constants and rounding differ.
+momentum): 1e-3 and 0.03 everywhere on the SSDLite flagship, 1e-5 and 0.1
+on MobileNetV2 and PeleeNet, 1e-3 and 0.01 in the MobileNetV3
+classifier. The activations are written out as the JAX formulas, not
+with F.hardsigmoid/F.hardswish, whose constants and rounding differ.
 """
 
 from __future__ import annotations
@@ -175,15 +176,60 @@ class InvertedResidualV3(nn.Module):
         return x + y if self.use_res_connect else y
 
 
+class InvertedResidualV2(nn.Module):
+    """MobileNetV2 inverted residual: expand 1x1 (absent at expand ratio
+    1), 3x3 depthwise, linear project 1x1, as `layers.0`, `layers.1`, ...
+    (the JAX package's `layers_<i>`)."""
+
+    def __init__(self, in_channels: int, features: int, stride: int,
+                 expand_ratio: float, bn_eps: float = 1e-5,
+                 bn_momentum: float = 0.1):
+        super().__init__()
+        hidden = int(round(in_channels * expand_ratio))
+        bn = dict(bn_eps=bn_eps, bn_momentum=bn_momentum)
+        self.use_res_connect = stride == 1 and in_channels == features
+        layers = []
+        if expand_ratio != 1:
+            layers.append(ConvBNAct(in_channels, hidden, 1, **bn))
+        layers.append(ConvBNAct(hidden, hidden, 3, stride=stride,
+                                groups=hidden, **bn))
+        layers.append(ConvBNAct(hidden, features, 1, act=None, **bn))
+        self.layers = nn.Sequential(*layers)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.layers(x)
+        return x + y if self.use_res_connect else y
+
+
+def dropout(x: torch.Tensor, rate: float, training: bool,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """The JAX package's nn.Dropout: in training, keep each entry with
+    probability 1 - rate and scale it by 1 / (1 - rate), drawing the mask
+    from `generator` (on x's device); outside training, x as it is. A
+    training call with rate > 0 and no generator raises, as the JAX
+    package's does without a 'dropout' key."""
+    if not training or rate == 0.0:
+        return x
+    if rate == 1.0:
+        return torch.zeros_like(x)
+    if generator is None:
+        raise ValueError("dropout in train mode needs a torch.Generator "
+                         "(the JAX package's 'dropout' rng)")
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
+                                                   device=x.device))
+
+
 class SeparableConv(nn.Module):
     """3x3 depthwise + BN + ReLU6, then a 1x1 conv with bias: the SSDLite
     prediction block."""
 
     def __init__(self, in_channels: int, features: int,
-                 bn_momentum: float = 0.03):
+                 bn_momentum: float = 0.03, bn_eps: float = 1e-3):
         super().__init__()
         self.dw = ConvBNAct(in_channels, in_channels, 3, groups=in_channels,
-                            act=relu6, bn_momentum=bn_momentum)
+                            act=relu6, bn_eps=bn_eps, bn_momentum=bn_momentum)
         self.pw = nn.Conv2d(in_channels, features, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -1,13 +1,14 @@
-"""MobileNetV3 feature trunk (counterpart of demonet_tpu/models/mobilenetv3.py).
+"""MobileNetV3 large/small (counterpart of demonet_tpu/models/mobilenetv3.py).
 
-The block tables and `MobileNetV3Features` with the C4 split that SSDLite
-taps. The classifier (`MobileNetV3`) waits for a later slice.
+The block tables, `MobileNetV3Features` with the C4 split that SSDLite
+taps, and the `MobileNetV3` classifier (mean pool, `pre_classifier`,
+hard-swish, dropout, `classifier`; BN eps 1e-3, torch momentum 0.01).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -15,6 +16,7 @@ from torch import nn
 from demonet_tpu_torch.models.layers import (
     ConvBNAct,
     InvertedResidualV3,
+    dropout,
     hard_swish,
     make_divisible,
 )
@@ -136,3 +138,32 @@ class MobileNetV3Features(nn.Module):
                 x = block(x)
         out.append(self.last_conv(x))
         return out
+
+
+class MobileNetV3(nn.Module):
+    """The classifier: features, global mean pool, `pre_classifier`,
+    hard-swish, dropout, `classifier`.
+
+    Takes NHWC images (B, H, W, 3), as the JAX module does. In train mode
+    with dropout_rate > 0, forward needs a `generator` for the dropout
+    mask (see layers.dropout)."""
+
+    def __init__(self, arch: str = "mobilenet_v3_large",
+                 num_classes: int = 1000, width_mult: float = 1.0,
+                 reduced_tail: bool = False, dilated: bool = False,
+                 dropout_rate: float = 0.2):
+        super().__init__()
+        rows, last_channel = mobilenet_v3_conf(arch, width_mult,
+                                               reduced_tail, dilated)
+        self.features = MobileNetV3Features(rows, bn_momentum=0.01)
+        self.dropout_rate = dropout_rate
+        self.pre_classifier = nn.Linear(6 * rows[-1].out_channels,
+                                        last_channel)
+        self.classifier = nn.Linear(last_channel, num_classes)
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        feats = self.features(x.permute(0, 3, 1, 2))[-1]
+        x = hard_swish(self.pre_classifier(feats.mean(dim=(2, 3))))
+        x = dropout(x, self.dropout_rate, self.training, generator)
+        return self.classifier(x)

@@ -11,7 +11,11 @@ CPU:
     python -m demonet_tpu_torch.train --dataset synthetic --test-only \
         --resume out/checkpoint_0 --device cpu
 
-The flags and defaults are the JAX CLI's, plus `--device`. Defaults
+`--model` takes each of the five detectors (`models/builders.DETECTORS`),
+and the frames take the model's own input size; a classifier's name
+raises a ValueError before anything is built, where the JAX CLI fails on
+the classifier's missing `config`. The flags and defaults are the JAX
+CLI's, plus `--device`. Defaults
 mirror the reference recipe: lr 0.02, SGD momentum 0.9, weight decay
 1e-4, epochs 26, MultiStepLR [16, 22] gamma 0.1, linear warmup 1000 iters
 (train.py:59-75, engine.py:21-25). One process on one device: the JAX
@@ -195,7 +199,11 @@ def main(args):
         make_train_step,
         train_one_epoch,
     )
-    from demonet_tpu_torch.models.builders import get_model, resolve_device
+    from demonet_tpu_torch.models.builders import (
+        DETECTORS,
+        get_model,
+        resolve_device,
+    )
     from demonet_tpu_torch.parallel.dist import (
         is_main_process,
         process_count,
@@ -206,6 +214,9 @@ def main(args):
         save_checkpoint,
     )
 
+    if args.model not in DETECTORS:
+        raise ValueError(f"--model {args.model!r} is not a detector; the "
+                         f"train CLI trains {', '.join(DETECTORS)}")
     print(args)
     # `cuda` with no GPU raises, rather than falling back to the CPU
     device = resolve_device(None if args.device == "cuda" else args.device)

@@ -10,11 +10,15 @@ as numpy arrays, in either of the forms the repository has:
 
 Every leaf is cast to float32 and lands in the module's state_dict by rule:
 
-  * a path segment `blocks_3` / `extras_0` / `cls_0` becomes `blocks.3` /
-    `extras.0` / `cls.0` (JAX list members vs nn.ModuleList);
+  * a path segment of letters and `_<n>` (`blocks_3`, `extras_0`, `cls_0`,
+    `layers_1`, `resblock_2`) becomes `blocks.3` ... (JAX list members vs
+    nn.ModuleList); a segment with a digit before its `_<n>` is a module
+    name and stays (`conv4_3`, `denseblock1_layer2`);
   * conv `kernel` (H, W, I/groups, O) -> `weight` (O, I/groups, H, W);
-  * `bn/scale|bias` -> `bn.weight|bias`; a conv's `bias` stays `bias`;
-  * batch_stats `.../bn/mean|var` -> `running_mean|running_var`.
+    Dense `kernel` (in, out) -> Linear `weight` (out, in);
+  * `scale` (BN) -> `weight`; `bias` stays `bias`; VGG's learned L2
+    rescale `scale_weight` stays `scale_weight`;
+  * batch_stats `.../mean|var` -> `running_mean|running_var`.
 
 It is strict: every parameter and buffer of the module is filled exactly
 once (`num_batches_tracked` excepted), a shape mismatch raises, and a key
@@ -34,6 +38,7 @@ _LEAF = {
     ("params", "kernel"): "weight",
     ("params", "scale"): "weight",
     ("params", "bias"): "bias",
+    ("params", "scale_weight"): "scale_weight",
     ("batch_stats", "mean"): "running_mean",
     ("batch_stats", "var"): "running_var",
 }
@@ -58,7 +63,7 @@ def torch_name(jax_key: str) -> str:
         name = _LEAF[(collection, leaf)]
     except KeyError:
         raise KeyError(f"no rule for JAX variable {jax_key!r}") from None
-    path = [re.sub(r"_(\d+)$", r".\1", seg) for seg in path]
+    path = [re.sub(r"^([A-Za-z]+)_(\d+)$", r"\1.\2", seg) for seg in path]
     return ".".join([*path, name])
 
 
@@ -83,6 +88,8 @@ def load_jax_variables(model: nn.Module, variables: Mapping[str, Any]) -> None:
         arr = np.asarray(value, dtype=np.float32)
         if arr.ndim == 4:  # (H, W, I/g, O) -> (O, I/g, H, W)
             arr = arr.transpose(3, 2, 0, 1)
+        elif arr.ndim == 2:  # Dense (in, out) -> Linear (out, in)
+            arr = arr.T
         if tuple(arr.shape) != tuple(state[name].shape):
             raise ValueError(f"{key!r}: shape {arr.shape} does not fit "
                              f"{name!r} {tuple(state[name].shape)}")

@@ -14,7 +14,10 @@ import torch
 from demonet_tpu.models import anchors as jax_anchors
 from demonet_tpu.ops import boxes as jax_boxes
 from demonet_tpu_torch.models import anchors as port_anchors
-from demonet_tpu_torch.models.builders import ssdlite320_mobilenet_v3_large
+from demonet_tpu_torch.models.builders import (
+    feature_grid_sizes,
+    ssdlite320_mobilenet_v3_large,
+)
 from demonet_tpu_torch.ops import boxes as port_boxes
 
 _RATIOS = [[2, 3]] * 6
@@ -31,7 +34,7 @@ def _random_boxes(rng, shape, scale=320.0):
 def test_default_boxes_bit_equal(size, n_anchors):
     det = ssdlite320_mobilenet_v3_large(num_classes=5, size=size,
                                         device="cpu")
-    grids = det.model.extractor.grid_sizes(size)
+    grids = feature_grid_sizes(det.model.extractor, size)
     want = jax_anchors.default_boxes(grids, size, _RATIOS, min_ratio=0.2,
                                      max_ratio=0.95)
     assert det.anchors.shape == (n_anchors, 4)
@@ -49,7 +52,8 @@ def test_grid_sizes_match_forward(size):
     extractor = det.model.extractor
     with torch.no_grad():
         maps = extractor(torch.zeros((1, 3, *size)))
-    assert [tuple(m.shape[2:]) for m in maps] == extractor.grid_sizes(size)
+    assert [tuple(m.shape[2:]) for m in maps] == feature_grid_sizes(
+        extractor, size)
 
 
 def test_box_iou_and_area_bit_equal():

@@ -5,8 +5,10 @@ The port's parser keeps every flag and default of the JAX CLI and adds
 `--device` (default `cuda`). `--dataset synthetic` trains an epoch on the
 CPU (`--device cpu`), writes a checkpoint, and `--test-only --resume`
 evaluates it to the same COCO summary, with the loader's worker pool and
-with the fused postprocess too. The datasets and evaluators the CLI
-builds equal the JAX CLI's. No JAX model is built.
+with the fused postprocess too; so does ssd_lite_mobilenet_v2, at its own
+320x320. A classifier's name raises before training. The datasets and
+evaluators the CLI builds equal the JAX CLI's. The registry builds all
+nine of the JAX package's names. No JAX model is built.
 """
 
 import argparse
@@ -63,16 +65,30 @@ def test_cuda_default_raises_without_a_gpu(monkeypatch):
         port_train.main(args)
 
 
-def test_registry_holds_the_jax_names():
+def test_registry_holds_the_jax_names(monkeypatch):
+    """Every name builds, on the CPU when asked; on `cuda` by default, so
+    with no GPU each raises; builders.py raises NotImplementedError
+    nowhere."""
+    import inspect
+
     assert sorted(builders.MODEL_REGISTRY) == sorted(_JAX_MODELS)
-    det = builders.get_model("ssdlite320_mobilenet_v3_large", num_classes=5,
-                             size=(64, 64), device="cpu")
-    assert det.config.num_classes == 5
-    for name in _JAX_MODELS[1:]:
-        with pytest.raises(NotImplementedError, match="item 9"):
-            builders.get_model(name, num_classes=5, device="cpu")
+    assert set(builders.DETECTORS) == set(_JAX_MODELS[:5])
+    for name in _JAX_MODELS:
+        model = builders.get_model(name, num_classes=5, device="cpu")
+        if name in builders.DETECTORS:
+            assert model.config.num_classes == 5
+            assert model.device == torch.device("cpu")
+            assert not model.model.training
+        else:
+            assert model.classifier.out_features == 5
+            assert not model.training
+    assert "NotImplementedError" not in inspect.getsource(builders)
     with pytest.raises(ValueError, match="Unknown model"):
         builders.get_model("resnet50")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for name in _JAX_MODELS:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            builders.get_model(name, num_classes=5)
 
 
 @pytest.mark.parametrize("policy", ["hflip", "ssd"])
@@ -134,3 +150,34 @@ def test_cli_synthetic_train_checkpoint_and_resume_agree(tmp_path,
     for extra in ([], ["-j", "2"], ["--postprocess", "fused"]):
         resumed = _run(["--test-only", "--resume", ckpt, *extra])
         np.testing.assert_array_equal(resumed.stats, trained.stats)
+
+
+def test_cli_trains_ssd_lite_mobilenet_v2_and_resumes(tmp_path, one_thread):
+    """Another family through the CLI at its own size (320x320, no resize):
+    2 steps, a checkpoint, an evaluation, and --test-only --resume to the
+    same summary."""
+    out = str(tmp_path)
+    argv = ["--dataset", "synthetic", "--synthetic-size", "4",
+            "--batch-size", "2", "--device", "cpu", "--model",
+            "ssd_lite_mobilenet_v2", "--score-thresh", "0.05"]
+    args = port_train.get_args_parser().parse_args(
+        [*argv, "--epochs", "1", "--output-dir", out, "--print-freq", "1"])
+    trained = port_train.main(args)
+    ckpt = os.path.join(out, "checkpoint_0")
+    assert os.path.exists(os.path.join(ckpt, "state.pt"))
+    with open(os.path.join(out, "metrics.jsonl")) as f:
+        assert len([line for line in f if line.strip()]) == 2
+    assert np.isfinite(trained.stats).all()
+    resumed = port_train.main(port_train.get_args_parser().parse_args(
+        [*argv, "--test-only", "--resume", ckpt]))
+    np.testing.assert_array_equal(resumed.stats, trained.stats)
+
+
+@pytest.mark.parametrize("name", ["mobilenet_v2", "peleenet_v1"])
+def test_cli_classifier_raises_before_training(tmp_path, name):
+    args = port_train.get_args_parser().parse_args(
+        ["--dataset", "synthetic", "--device", "cpu", "--model", name,
+         "--output-dir", str(tmp_path)])
+    with pytest.raises(ValueError, match="ssd300_vgg16"):
+        port_train.main(args)
+    assert not os.listdir(tmp_path)

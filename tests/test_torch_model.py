@@ -35,6 +35,12 @@ from demonet_tpu_torch.models.builders import (
     ssdlite320_mobilenet_v3_large as port_ssdlite,
 )
 from demonet_tpu_torch.utils.weights import load_jax_variables
+from tests.torch_parity import one_thread  # noqa: F401 (fixture)
+
+# one intra-op thread for every test here: beside the other test workers,
+# torch's threads in each worker wait on each other for most of a step
+# (tests/torch_parity.py::one_thread)
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 _SIZE = (64, 64)
 _CLASSES = 5
@@ -282,3 +288,23 @@ def test_serving_modes_equal_reference_step(ref, kwargs):
     assert want["valid"].any()
     for key in want:
         assert torch.equal(got[key], want[key]), key
+
+
+def test_full_tail_matches_jax():
+    """reduced_tail=False (the JAX builder's option): MobileNetV3-Large's
+    full tail, 960 channels at C5 where the reduced tail has 480; the head
+    outputs match the JAX model's on the same weights."""
+    jd = jax_ssdlite(num_classes=_CLASSES, size=_SIZE, reduced_tail=False)
+    shapes = jax.eval_shape(jd.init, jax.random.PRNGKey(0))
+    variables = _draw_variables(shapes, np.random.default_rng(1))
+    pd = port_ssdlite(num_classes=_CLASSES, size=_SIZE, reduced_tail=False,
+                      device="cpu")
+    assert pd.model.extractor.out_channels[:2] == [672, 960]
+    load_jax_variables(pd.model, variables)
+    x = _images(8)
+    want = jax.jit(jd.apply)(variables, x)
+    with torch.no_grad():
+        got = pd.model(torch.from_numpy(x))
+    for key in ("cls_logits", "bbox_regression"):
+        np.testing.assert_allclose(got[key].numpy(), np.asarray(want[key]),
+                                   rtol=0, atol=1e-4)

@@ -51,6 +51,12 @@ from demonet_tpu_torch.models.builders import (
 from demonet_tpu_torch.models.losses import match_batch
 from demonet_tpu_torch.utils.checkpoints import load_npz_variables
 from demonet_tpu_torch.utils.weights import load_jax_variables, torch_name
+from tests.torch_parity import one_thread  # noqa: F401 (fixture)
+
+# one intra-op thread for every test here: beside the other test workers,
+# torch's threads in each worker wait on each other for most of a step
+# (tests/torch_parity.py::one_thread)
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 _ASSETS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "bench_assets")

@@ -59,6 +59,12 @@ from demonet_tpu_torch.utils.freeze import (
     mobilenet_trainable_mask,
 )
 from demonet_tpu_torch.utils.weights import load_jax_variables, torch_name
+from tests.torch_parity import one_thread  # noqa: F401 (fixture)
+
+# one intra-op thread for every test here: beside the other test workers,
+# torch's threads in each worker wait on each other for most of a step
+# (tests/torch_parity.py::one_thread)
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 _SIZE = (64, 64)
 _CLASSES = 4
