@@ -104,6 +104,22 @@ package. The script prints one JSON line per phase:
                an epoch and its evaluation; K1 and K2 launches counted
                over each evaluation (reset before, read after, > 0 or
                fail); epoch and eval img/s; the step's pageable copy
+  entry_points the entry points a user reaches first: the trained
+               npz as a reference .pth through `hub.load` (detections
+               bit-equal to the npz model's on the 4 batches); the predict
+               CLI on 8 JPEG frames in both --postprocess modes (K1 and
+               K2 per image, the modes' detections equal); the public
+               nms_mask, nms and batched_nms on CUDA tensors at N =
+               1,000, 8,192 and one flagship image's 3,234 boxes (K1 once
+               a call, bit-equal to their plain twin on the card and, up
+               to N = 4,096, on the CPU; K1 alone timed beside its plain
+               version and bound); eval_voc on 64 JPEG frames with a
+               random ssd_lite_mobilenet_v2 .pth, the card's APs within
+               1e-3 of the CPU's; --pretrained from an empty and then a
+               warm weights cache (the --npz-weights summary); the native
+               JPEG loader against the Python loader, where g++ and
+               <jpeglib.h> are there; the CLIs' printing goes to
+               chiprun_out/entry_points.log
   launch_floor the device time of a one-float fill, the shortest kernel
 
 then `previous_design` (K1's, K3's and K4's times before their
@@ -2003,6 +2019,579 @@ def cli_synthetic(reset_counts, read_counts):
           "h2d_copy_pageable_b32": copy_ms})
 
 
+# -- the other entry points ---------------------------------------------------
+# the predict CLI's frames, the public NMS's sizes, the eval_voc tree and
+# the native decode tree
+_ENTRY_FRAMES = 8
+_ENTRY_FRAME_HW = (480, 640)
+_PUBLIC_NMS_N = (1000, 8192)
+_PUBLIC_NMS_IOU = 0.55
+_VOC_FRAMES, _VOC_BATCH = 64, 32
+_NATIVE_FRAMES = 64
+_ENTRY_LOG = os.path.join(_HERE, "chiprun_out", "entry_points.log")
+_FLAGSHIP = "ssdlite320_mobilenet_v3_large"
+
+
+def write_jpegs(folder, n, hw, seed):
+    """n seeded shapes frames of size hw as JPEG files; returns (paths,
+    the rectangles as (boxes (n, 8, 4), labels (n, 8), valid (n, 8)))."""
+    import cv2
+    import numpy as np
+
+    h, w = hw
+    imgs, gt = shapes_images(np.random.default_rng(seed), n, max(h, w))
+    os.makedirs(folder, exist_ok=True)
+    paths = []
+    for i, img in enumerate(imgs):
+        paths.append(os.path.join(folder, f"{i:06d}.jpg"))
+        check(cv2.imwrite(paths[-1], img[:h, :w]), f"cv2 wrote no {paths[-1]}")
+    boxes = gt["gt_boxes"].copy()
+    boxes[..., 0::2] = boxes[..., 0::2].clip(0, w)
+    boxes[..., 1::2] = boxes[..., 1::2].clip(0, h)
+    valid = gt["gt_valid"] & (boxes[..., 2] - boxes[..., 0] > 1) & (
+        boxes[..., 3] - boxes[..., 1] > 1)
+    return paths, (boxes, gt["gt_labels"], valid)
+
+
+def write_voc_annotations(root, names, objects, hw):
+    """VOC2007 Annotations/<name>.xml and ImageSets/Main/test.txt;
+    objects[i]: [(class name, (x1, y1, x2, y2))]."""
+    h, w = hw
+    os.makedirs(os.path.join(root, "Annotations"), exist_ok=True)
+    os.makedirs(os.path.join(root, "ImageSets", "Main"), exist_ok=True)
+    for name, objs in zip(names, objects):
+        body = "".join(
+            f"<object><name>{c}</name><difficult>0</difficult><bndbox>"
+            f"<xmin>{b[0]:.1f}</xmin><ymin>{b[1]:.1f}</ymin>"
+            f"<xmax>{b[2]:.1f}</xmax><ymax>{b[3]:.1f}</ymax></bndbox>"
+            "</object>" for c, b in objs)
+        with open(os.path.join(root, "Annotations", f"{name}.xml"), "w") as f:
+            f.write(f"<annotation><size><width>{w}</width><height>{h}"
+                    f"</height><depth>3</depth></size>{body}</annotation>")
+    with open(os.path.join(root, "ImageSets", "Main", "test.txt"), "w") as f:
+        f.write("\n".join(names) + "\n")
+
+
+def write_coco_tree(root, n, hw, seed):
+    """COCO val2017 layout of n seeded shapes frames (JPEG) with their
+    rectangles; returns (image folder, annotation file)."""
+    paths, (boxes, labels, valid) = write_jpegs(
+        os.path.join(root, "val2017"), n, hw, seed)
+    images, anns = [], []
+    for i, p in enumerate(paths):
+        images.append({"id": i + 1, "file_name": os.path.basename(p),
+                       "height": hw[0], "width": hw[1]})
+        for b, lab in zip(boxes[i][valid[i]], labels[i][valid[i]]):
+            x1, y1, x2, y2 = (float(v) for v in b)
+            anns.append({"id": len(anns) + 1, "image_id": i + 1,
+                         "category_id": int(lab), "iscrowd": 0,
+                         "bbox": [x1, y1, x2 - x1, y2 - y1],
+                         "area": (x2 - x1) * (y2 - y1)})
+    ann_file = os.path.join(root, "instances_val2017.json")
+    with open(ann_file, "w") as f:
+        json.dump({"images": images, "annotations": anns, "categories": [
+            {"id": c, "name": f"shape{c}"} for c in range(1, 7)]}, f)
+    return os.path.join(root, "val2017"), ann_file
+
+
+@contextlib.contextmanager
+def plain_nms():
+    """Inside the block the public NMS (ops/nms.py) runs the plain
+    version of K1 on any device: its plain twin, to time and compare."""
+    from demonet_tpu_torch.ops import nms as nms_mod
+
+    wrapper = nms_mod.nms_keep_batch
+    nms_mod.nms_keep_batch = nms_mod.nms_keep_batch_plain
+    try:
+        yield
+    finally:
+        nms_mod.nms_keep_batch = wrapper
+
+
+@contextlib.contextmanager
+def weights_dir(path):
+    """$DEMONET_WEIGHTS_DIR set to path inside the block."""
+    saved = os.environ.get("DEMONET_WEIGHTS_DIR")
+    os.environ["DEMONET_WEIGHTS_DIR"] = path
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop("DEMONET_WEIGHTS_DIR", None)
+        else:
+            os.environ["DEMONET_WEIGHTS_DIR"] = saved
+
+
+def save_reference_pth(name, variables, path):
+    """JAX-layout variables of `name` as a reference-layout .pth."""
+    import torch
+
+    from demonet_tpu_torch.utils.torch_weights import (
+        synthesize_torch_state_dict,
+    )
+
+    torch.save({k: torch.from_numpy(v) for k, v in
+                synthesize_torch_state_dict(name, variables).items()}, path)
+    return path
+
+
+def entry_points(trained, batches, sizes, reset_counts, read_counts):
+    """entry_points: the entry points a user reaches first, on the card.
+
+    (a) the trained npz as a reference .pth (synthesize_torch_state_dict),
+    loaded by `hub.load` on cuda: detections on the 4 shapes batches
+    bit-equal to the npz-loaded model's; (b) the predict CLI on 8 shapes
+    frames written as JPEG (480x640), in both --postprocess modes, K1 and
+    K2 counted per image, the two modes' detections equal, each image's
+    time beside its predict step's alone (synchronized before and after,
+    host clock); (c) the public
+    nms_mask, nms and batched_nms on CUDA tensors, each launching K1 once,
+    bit-equal to their plain twin (the same functions with K1's plain
+    version, on the card and on the CPU), at N = 1,000 and 8,192 (seeded
+    random boxes) and on one flagship image's 3,234 decoded boxes, timed;
+    (d) eval_voc on a VOCdevkit of 64 shapes frames with
+    ssd_lite_mobilenet_v2 from a .pth of seeded random weights, on the
+    card and on the CPU: the ground truth holds the rectangles and the
+    model's own confident detections from a first pass (random weights
+    find none of the rectangles), so the card's per-class APs and mAP are
+    held within 1e-3 of the CPU's on real matches; the results files written; (e) --pretrained
+    with an empty weights cache raises and names the URL; with the
+    flagship .pth in the cache under its published name, --test-only
+    --pretrained prints "loaded pretrained weights" and gives the COCO
+    summary of --npz-weights; (f) the native JPEG loader, where g++ and
+    <jpeglib.h> are there: it must build, and over a 64-frame COCO tree
+    its batches' sizes and targets equal the Python loader's, its time
+    per 64 frames beside the Python loader's, and the largest pixel
+    difference between libjpeg + its bilinear resize and PIL + cv2.
+    Returns {"launches_by_path", "public_nms"} for the `kernels` line."""
+    import io
+    import tempfile
+
+    import cv2
+    import numpy as np
+    import torch
+
+    from demonet_tpu_torch import eval_voc as eval_voc_cli
+    from demonet_tpu_torch import hub
+    from demonet_tpu_torch import predict as predict_cli
+    from demonet_tpu_torch import train as train_cli
+    from demonet_tpu_torch.data import native
+    from demonet_tpu_torch.data.coco import CocoDetection
+    from demonet_tpu_torch.data.loader import DetectionLoader
+    from demonet_tpu_torch.data.voc import VOC_CLASSES
+    from demonet_tpu_torch.engine import evaluate as ev_mod
+    from demonet_tpu_torch.engine.evaluate import make_predict_step
+    from demonet_tpu_torch.models import detection
+    from demonet_tpu_torch.ops.nms import (
+        batched_nms,
+        nms,
+        nms_keep_batch,
+        nms_keep_batch_plain,
+        nms_mask,
+    )
+    from demonet_tpu_torch.utils.checkpoints import load_npz_variables
+    from demonet_tpu_torch.utils.pretrained import (
+        PRETRAINED_URLS,
+        cached_weights_path,
+    )
+    from demonet_tpu_torch.utils import viz
+    from demonet_tpu_torch.utils.weights import jax_variables_of
+
+    t0_phase = time.perf_counter()
+    split = {}   # seconds of each part of the phase
+
+    def lap(part):
+        split[part] = time.perf_counter() - t0_phase - sum(split.values())
+    dev = trained.device
+    launches = {}
+    os.makedirs(os.path.dirname(_ENTRY_LOG), exist_ok=True)
+    if os.path.exists(_ENTRY_LOG):
+        os.remove(_ENTRY_LOG)
+
+    def counted(path, fn):
+        """fn() with every count reset just before and read just after."""
+        torch.cuda.synchronize()
+        reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        launches[f"entry_points/{path}"] = read_counts()
+        return out
+
+    def logged(fn):
+        """fn()'s printing to the phase's log, and returned."""
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            out = fn()
+        with open(_ENTRY_LOG, "a") as log:
+            log.write(buf.getvalue())
+        return out, buf.getvalue()
+
+    with tempfile.TemporaryDirectory(dir=_HERE) as tmp:
+        # (a) the .pth round trip through hub.load
+        pth = save_reference_pth(_FLAGSHIP, load_npz_variables(_NPZ),
+                                 os.path.join(tmp, "flagship.pth"))
+        step = make_predict_step(trained)
+        det = hub.load(_FLAGSHIP, weights=pth, num_classes=91)
+        check(det.device == dev, f"hub.load put the model on {det.device}")
+        hub_step = make_predict_step(det)
+        want = [step(trained.model, x, sizes) for x in batches]
+        got = counted("hub_pth", lambda: [hub_step(det.model, x, sizes)
+                                          for x in batches])
+        for g, w in zip(got, want):
+            for k in w:
+                check(torch.equal(g[k], w[k]),
+                      f"hub.load(.pth) detections differ in {k}")
+        check(launches["entry_points/hub_pth"]["nms_keep_batch"] == 4,
+              f"hub path launches {launches['entry_points/hub_pth']}")
+        lap("hub_pth")
+
+        # (b) the predict CLI on JPEG frames, both modes
+        frames, _ = write_jpegs(os.path.join(tmp, "frames"), _ENTRY_FRAMES,
+                                _ENTRY_FRAME_HW, seed=41)
+        cli_out = {}
+        read_image = viz.load_image
+        starts = []   # when the CLI began each image (its first read)
+        step_ms = []  # the predict step alone, each image, synchronized
+
+        def timed_read(path, size=None, *args, **kwargs):
+            if size is None:
+                starts.append(time.perf_counter())
+            return read_image(path, size, *args, **kwargs)
+
+        def timed_make_step(*args, **kwargs):
+            inner = make_predict_step(*args, **kwargs)
+
+            def timed_step(*a, **kw):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = inner(*a, **kw)
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - t) * 1e3)
+                return out
+            return timed_step
+
+        for mode in ("reference", "fused"):
+            args = predict_cli.get_args_parser().parse_args(
+                ["--torch-weights", pth, "--images", *frames,
+                 "--postprocess", mode, "--output-dir",
+                 os.path.join(tmp, f"vis_{mode}")])
+            starts.clear()
+            step_ms.clear()
+            viz.load_image = timed_read
+            ev_mod.make_predict_step = timed_make_step
+            t0 = time.perf_counter()
+            try:
+                res, _ = counted(f"predict_cli_{mode}", lambda: logged(
+                    lambda: predict_cli.main(args)))
+            finally:
+                viz.load_image = read_image
+                ev_mod.make_predict_step = make_predict_step
+            secs = time.perf_counter() - t0
+            per_image = np.diff(starts + [t0 + secs]) * 1e3
+            check(len(step_ms) == _ENTRY_FRAMES,
+                  f"predict CLI ({mode}) ran {len(step_ms)} timed steps")
+            c = launches[f"entry_points/predict_cli_{mode}"]
+            check(c["nms_keep_batch"] == _ENTRY_FRAMES
+                  and c["gather_rows_batch"] == 2 * _ENTRY_FRAMES,
+                  f"predict CLI ({mode}) launched {c}: want 1 NMS and 2 "
+                  "gathers per image")
+            for p in frames:
+                vis = cv2.imread(os.path.join(tmp, f"vis_{mode}",
+                                              os.path.basename(p)))
+                check(vis is not None and vis.shape[:2] == _ENTRY_FRAME_HW,
+                      f"predict CLI ({mode}) saved no {_ENTRY_FRAME_HW} "
+                      f"image for {p}")
+            cli_out[mode] = {
+                "detections": res, "seconds": secs,
+                "setup_seconds": starts[0] - t0,
+                "first_image_ms": float(per_image[0]),
+                "ms_per_image_after_first": {
+                    "median": float(np.median(per_image[1:])),
+                    "min": float(per_image[1:].min()),
+                    "max": float(per_image[1:].max())},
+                "predict_step_first_ms": step_ms[0],
+                "predict_step_ms_after_first": {
+                    "median": float(np.median(step_ms[1:])),
+                    "min": float(min(step_ms[1:])),
+                    "max": float(max(step_ms[1:]))}}
+        box_diff = 0.0
+        for r, f in zip(cli_out["reference"]["detections"],
+                        cli_out["fused"]["detections"]):
+            check(np.array_equal(r["labels"], f["labels"])
+                  and np.array_equal(r["scores"], f["scores"]),
+                  "predict CLI: fused detections != reference")
+            if len(r["boxes"]):
+                box_diff = max(box_diff,
+                               float(np.abs(r["boxes"] - f["boxes"]).max()))
+        check(box_diff <= 1e-4, f"predict CLI: fused boxes differ by "
+              f"{box_diff}")
+        n_dets = [len(r["scores"]) for r in cli_out["reference"]["detections"]]
+        check(sum(n_dets) > 0, "predict CLI: no detection above 0.5")
+        lap("predict_cli")
+
+        # (c) the public NMS on CUDA tensors
+        gen = torch.Generator().manual_seed(43)
+        cases = {}
+        for n in _PUBLIC_NMS_N:
+            xy = torch.rand((n, 2), generator=gen) * 1000
+            wh = torch.rand((n, 2), generator=gen) * 90 + 10
+            cases[f"random_N{n}"] = (
+                torch.cat([xy, xy + wh], 1), torch.rand(n, generator=gen),
+                torch.randint(0, 90, (n,), generator=gen))
+        with torch.inference_mode():
+            o = trained.model(detection.preprocess(batches[0][:1],
+                                                   trained.config,
+                                                   resize=False))
+            sc, bx = detection._scores_and_boxes(
+                o["cls_logits"], o["bbox_regression"],
+                torch.as_tensor(trained.anchors, device=dev), trained.config)
+        fg, lab = sc[0, :, 1:].max(-1)
+        cases[f"flagship_N{bx.shape[1]}"] = (bx[0].cpu(), fg.cpu(),
+                                             (lab + 1).cpu())
+        apis = {
+            "nms_mask": lambda b, s, l: nms_mask(b, s, _PUBLIC_NMS_IOU),
+            "nms": lambda b, s, l: nms(b, s, _PUBLIC_NMS_IOU, 300),
+            "batched_nms": lambda b, s, l: batched_nms(
+                b, s, l, _PUBLIC_NMS_IOU, 300),
+        }
+        on_card = {name: tuple(t.to(dev).contiguous() for t in c)
+                   for name, c in cases.items()}
+        for name, c in on_card.items():   # warm-up, outside the count
+            for fn in apis.values():
+                fn(*c)
+
+        def run_public():
+            return {(case, api): fn(*c) for case, c in on_card.items()
+                    for api, fn in apis.items()}
+
+        kernel_out = counted("public_nms", run_public)
+        check(launches["entry_points/public_nms"]["nms_keep_batch"]
+              == len(cases) * len(apis),
+              f"public NMS launches {launches['entry_points/public_nms']}: "
+              "want K1 once per call")
+        with plain_nms():
+            plain_card = run_public()
+        # and on the CPU, up to N = 4,096 (the plain loop's cost grows as
+        # N squared on the host)
+        plain_cpu = {(case, api): fn(*cases[case])
+                     for case in cases for api, fn in apis.items()
+                     if cases[case][0].shape[0] <= 4096}
+        for key, got in kernel_out.items():
+            got = got if isinstance(got, tuple) else (got,)
+            for want in (plain_card[key], plain_cpu.get(key, plain_card[key])):
+                want = want if isinstance(want, tuple) else (want,)
+                for g, w in zip(got, want):
+                    record_err(("nms_keep_batch", "nms_keep_batch/public"),
+                               g.cpu().float(), w.cpu().float())
+                    check(torch.equal(g.cpu(), w.cpu()),
+                          f"public {key[1]} on {key[0]}: kernel != plain")
+
+        public = {}
+        for name, (b, s, lab) in on_card.items():
+            n = b.shape[0]
+            order = torch.sort(-s, stable=True)[1]
+            b1, s1 = b[order][None].contiguous(), s[order][None].contiguous()
+            thr = -1e30
+            keep = nms_keep_batch(b1, s1, _PUBLIC_NMS_IOU, thr)
+            nbytes, ops = nms_work(keep, s1, thr)
+            bms, by = bound(nbytes, ops)
+            k_t = timed(lambda: nms_keep_batch(b1, s1, _PUBLIC_NMS_IOU, thr),
+                        50)
+            # ~12 launches per valid candidate, so the plain version is
+            # launch-bound: CUDA events over one call (a profiler trace
+            # of its ~10^5 launches costs tens of seconds)
+            plain_ms = cuda_ms(lambda: nms_keep_batch_plain(
+                b1, s1, _PUBLIC_NMS_IOU, thr), 1, 1 if n <= 4096 else 0)
+            api_ms = {api: timed(lambda fn=fn: fn(b, s, lab), 20)["ms"]
+                      for api, fn in apis.items()}
+            public[name] = {
+                "shape": [1, n], "launch": "block" if n <= 512 else "tiled",
+                "ms": k_t["ms"], "plain_ms": plain_ms,
+                "plain_ms_from": "events", "bound_ms": bms,
+                "bound_by": by, "library_ms": None,
+                "library": "none: no PyTorch call (torchvision's nms is "
+                           "not in the port)",
+                "bytes": nbytes, "ops": ops, "kept": int(keep.sum()),
+                "event_ms": k_t["event_ms"], "ms_from": k_t["ms_from"],
+                "public_call_ms": api_ms}
+        public_err = _MAX_ERR.get("nms_keep_batch/public", 0.0)
+        lap("public_nms")
+
+        # (d) eval_voc: ssd_lite_mobilenet_v2 from a .pth of seeded random
+        # weights (calibrated BN, x5 class head, as in `families`)
+        _, v2_cpu = family_detectors("ssd_lite_mobilenet_v2", seed=5)
+        peak_class_head(v2_cpu)
+        v2_pth = save_reference_pth(
+            "ssd_lite_mobilenet_v2", jax_variables_of(v2_cpu.model),
+            os.path.join(tmp, "v2.pth"))
+        voc = os.path.join(tmp, "VOCdevkit")
+        hw = (240, 320)
+        paths, rects = write_jpegs(os.path.join(voc, "VOC2007", "JPEGImages"),
+                                   _VOC_FRAMES, hw, seed=47)
+        names = [os.path.basename(p)[:-4] for p in paths]
+        rect_objs = [[(VOC_CLASSES[int(lab)], box) for box, lab, v in zip(
+            *(r[i] for r in rects)) if v] for i in range(len(paths))]
+        write_voc_annotations(os.path.join(voc, "VOC2007"), names,
+                              rect_objs, hw)
+
+        def run_voc(*extra):
+            args = eval_voc_cli.get_args_parser().parse_args(
+                ["--data-path", voc, "--torch-weights", v2_pth,
+                 "--batch-size", str(_VOC_BATCH), *extra])
+            t0 = time.perf_counter()
+            ev, _ = logged(lambda: eval_voc_cli.main(args))
+            return ev, time.perf_counter() - t0
+
+        first, _ = run_voc()
+        # the ground truth: the model's confident detections (up to 3 an
+        # image, score > 0.5) beside the rectangles
+        gt_objs = []
+        for i, objs in enumerate(rect_objs):
+            d = first._dets[i]
+            top = np.argsort(-d["scores"], kind="stable")[:3]
+            gt_objs.append(objs + [(VOC_CLASSES[int(d["labels"][j])],
+                                    d["boxes"][j]) for j in top
+                                   if d["scores"][j] > 0.5])
+        write_voc_annotations(os.path.join(voc, "VOC2007"), names, gt_objs,
+                              hw)
+        cpu_ev, cpu_s = run_voc("--device", "cpu")
+        results = os.path.join(tmp, "voc_results")
+        card_ev, card_s = counted("eval_voc", lambda: run_voc(
+            "--results-dir", results))
+        c = launches["entry_points/eval_voc"]
+        n_batches = -(-_VOC_FRAMES // _VOC_BATCH)
+        check(c["nms_keep_batch"] == n_batches
+              and c["gather_rows_batch"] == 2 * n_batches,
+              f"eval_voc launched {c}: want 1 NMS and 2 gathers per batch")
+        ap_diff = max(abs(card_ev.aps[k] - cpu_ev.aps[k]) for k in cpu_ev.aps)
+        check(ap_diff <= 1e-3, f"eval_voc: the card's APs differ from the "
+              f"CPU's by {ap_diff} (limit 1e-3)")
+        check(cpu_ev.aps["mAP"] > 0.05, f"eval_voc: the CPU's mAP "
+              f"{cpu_ev.aps['mAP']} finds none of its own detections")
+        written = sorted(f for f in os.listdir(results)
+                         if f.startswith("det_test_"))
+        check(len(written) == 20, f"eval_voc wrote {written}")
+        n_gt = sum(len(o) for o in gt_objs)
+        lap("eval_voc")
+
+        # (e) --pretrained: a cold cache raises, a warm one loads
+        test_only = ("--dataset", "synthetic", "--synthetic-size",
+                     str(_CLI_FRAMES), "--batch-size", str(_CLI_BATCH),
+                     "--num-classes", "91", "--test-only", "--output-dir",
+                     os.path.join(tmp, "cli"))
+        parse = train_cli.get_args_parser().parse_args
+        cache = os.path.join(tmp, "weights_cache")
+        os.makedirs(cache)
+        with weights_dir(cache):
+            try:
+                logged(lambda: train_cli.main(parse([*test_only,
+                                                     "--pretrained"])))
+                raised = "nothing"
+            except FileNotFoundError as e:
+                raised = str(e)
+            check(PRETRAINED_URLS[_FLAGSHIP] in raised,
+                  f"--pretrained on an empty cache raised {raised!r}")
+            os.replace(pth, cached_weights_path(_FLAGSHIP))
+            with cudnn_deterministic():
+                warm, printed = counted(
+                    "train_cli_pretrained", lambda: logged(
+                        lambda: train_cli.main(parse([*test_only,
+                                                      "--pretrained"]))))
+        check(f"loaded pretrained weights for {_FLAGSHIP}" in printed,
+              "--pretrained printed no 'loaded pretrained weights'")
+        with cudnn_deterministic():
+            npz, _ = logged(lambda: train_cli.main(parse(
+                [*test_only, "--npz-weights", _NPZ])))
+        check(np.array_equal(warm.stats, npz.stats),
+              f"--pretrained summary {warm.stats.tolist()} != --npz-weights "
+              f"{npz.stats.tolist()}")
+        lap("pretrained")
+
+        # (f) the native JPEG loader (host code)
+        tools = native.toolchain()
+        if tools["g++"] and tools["jpeglib.h"]:
+            check(native.available(), f"the native library did not build: "
+                  f"{native.build_error()}")
+            img_dir, ann = write_coco_tree(os.path.join(tmp, "coco"),
+                                           _NATIVE_FRAMES, _ENTRY_FRAME_HW,
+                                           seed=53)
+            ds = CocoDetection(img_dir, ann)
+            loaded, secs = {}, {}
+            for way in ("native", "python"):
+                t0 = time.perf_counter()
+                loaded[way] = list(DetectionLoader(
+                    ds, _CLI_BATCH, (320, 320), prefetch=0,
+                    native_decode=way == "native"))
+                secs[way] = time.perf_counter() - t0
+            pixel = 0.0
+            for a, b in zip(loaded["native"], loaded["python"]):
+                for k in ("original_sizes", "gt_labels", "gt_valid",
+                          "image_ids", "batch_valid"):
+                    check(np.array_equal(a[k], b[k]),
+                          f"native loader: {k} differs")
+                check(np.allclose(a["gt_boxes"], b["gt_boxes"], rtol=0,
+                                  atol=1e-4),
+                      "native loader: gt_boxes differ")
+                pixel = max(pixel, float(np.abs(a["images"]
+                                                - b["images"]).max()))
+            native_line = {
+                "toolchain": tools, "built": native.library_path()[
+                    len(_HERE) + 1:],
+                "frames": _NATIVE_FRAMES, "frame_hw": list(_ENTRY_FRAME_HW),
+                "seconds_per_64_frames": {
+                    w: s * 64 / _NATIVE_FRAMES for w, s in secs.items()},
+                "sizes_and_targets_equal": True,
+                "max_pixel_diff_libjpeg_vs_pil_cv2": pixel}
+        else:
+            native_line = {"toolchain": tools, "skipped": (
+                "the native JPEG library cannot be built here: "
+                + ("no g++" if not tools["g++"] else "no <jpeglib.h>")
+                + "; the loader's native_decode is optional, as in the "
+                "JAX package")}
+            print(f"entry_points: native decode not run: "
+                  f"{native_line['skipped']}", flush=True)
+
+    lap("native_decode")
+    emit({"phase": "entry_points", "seconds": time.perf_counter() - t0_phase,
+          "split_seconds": split,
+          "hub_pth_roundtrip": {"batches": len(batches),
+                                "bit_equal_to_npz_model": True,
+                                "launches": launches["entry_points/hub_pth"]},
+          "predict_cli": {
+              "frames": _ENTRY_FRAMES, "frame_hw": list(_ENTRY_FRAME_HW),
+              "detections_above_0.5": n_dets,
+              "fused_equals_reference": True,
+              "max_box_diff_fused_vs_reference": box_diff,
+              **{mode: {**{k: v for k, v in o.items()
+                           if k != "detections"},
+                        "launches": launches[f"entry_points/predict_cli_{mode}"],
+                        "launches_per_image": {
+                            k: v / _ENTRY_FRAMES for k, v in launches[
+                                f"entry_points/predict_cli_{mode}"].items()}}
+                 for mode, o in cli_out.items()}},
+          "public_nms": {"iou": _PUBLIC_NMS_IOU, "apis": sorted(apis),
+                         "cases": sorted(cases), "bit_equal": True,
+                         "max_abs_err": public_err,
+                         "launches": launches["entry_points/public_nms"],
+                         "k1_alone": public},
+          "eval_voc": {
+              "frames": _VOC_FRAMES, "batch": _VOC_BATCH, "frame_hw": list(hw),
+              "weights": "ssd_lite_mobilenet_v2, seeded random (calibrated "
+                         "BN, x5 class head), as a reference .pth",
+              "gt_objects": n_gt, "card_map": card_ev.aps["mAP"],
+              "cpu_map": cpu_ev.aps["mAP"], "max_ap_diff": ap_diff,
+              "card_seconds": card_s, "card_img_per_s": _VOC_FRAMES / card_s,
+              "cpu_seconds": cpu_s, "launches": c,
+              "results_files": len(written)},
+          "pretrained": {"cold_cache_raises": raised[:160],
+                         "warm_summary_equal_to_npz_weights": True,
+                         "launches": launches[
+                             "entry_points/train_cli_pretrained"]},
+          "native_decode": native_line})
+    return {"launches_by_path": launches, "public_nms": public,
+            "public_nms_err": public_err}
+
+
 def main():
     import torch
 
@@ -2796,6 +3385,18 @@ def main():
           f"the train step launched kernels: {read_counts()}")
     train_loop()
     cli_synthetic(reset_counts, read_counts)
+    entry = entry_points(trained, batches, sizes, reset_counts, read_counts)
+    launches_by_path.update(entry["launches_by_path"])
+    for r in rows:
+        r["launches"] = total_launches(r["name"])
+        r["launches_by_path"] = by_path(r["name"])
+    nms_row_main = next(r for r in rows if r["name"] == "nms_keep_batch")
+    nms_row_main["public_api_shapes"] = {
+        **entry["public_nms"], "max_abs_err": entry["public_nms_err"],
+        "launches": launches_by_path["entry_points/public_nms"][
+            "nms_keep_batch"],
+        "launches_from": "entry_points: nms_mask, nms and batched_nms, "
+                         "one K1 launch each per case (P = 1, K = N)"}
 
     # the shortest kernel the card runs: one float written by a fill,
     # timed as every kernel here is (device_ms)

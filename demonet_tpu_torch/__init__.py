@@ -14,7 +14,9 @@ package imports on a host with no GPU, no nvcc and no triton.
     dets = det.predict(images_uint8_nhwc)
 
 Training: `engine.state.create_train_state(det, make_optimizer(...))`,
-`engine.train.make_train_step(det)` and `train_one_epoch`.
+`engine.train.make_train_step(det)` and `train_one_epoch`. The CLIs:
+`python -m demonet_tpu_torch.train`, `.predict` and `.eval_voc`; models
+with their weights: `hub.load(name, weights=...)`.
 """
 
 __version__ = "0.1.0"

@@ -34,9 +34,12 @@ timing, or batch composition, and reshuffle per epoch like the reference's
 DistributedSampler.set_epoch (train.py:188).
 
 cv2 is imported only where a frame is resized (or by the transforms that
-use it), so frames already at the network size load without it. The JAX
-package's native C++ decode path (`native_decode=True`) waits for ROADMAP
-Queue 1 item 8b here and raises.
+use it), so frames already at the network size load without it.
+
+native_decode=True (an eval and serving path): each batch's JPEGs are
+decoded and resized in C++ threads in one call (`data/native.py`, the
+port's own build of `csrc/imageio.cc`), with the targets taken from the
+dataset's `raw_item` metadata; the Python augmentations are bypassed.
 """
 
 from __future__ import annotations
@@ -251,14 +254,29 @@ class DetectionLoader:
         self.num_workers = num_workers
         self.epoch = 0
         self._rng_aware = _rng_aware(dataset)
-        # the native C++ decode+resize path (cpp/imageio.cc, with
-        # native_threads decode threads) is not ported: data/native.py
-        # waits for ROADMAP Queue 1 item 8b
-        del native_threads
+        # the native C++ decode+resize path (csrc/imageio.cc): it bypasses
+        # the Python augmentations, so it is an eval/serving path
+        self.native_decode = False
+        self.native_threads = native_threads
         if native_decode:
-            raise NotImplementedError(
-                "DetectionLoader(native_decode=True) is not ported yet "
-                "(ROADMAP Queue 1, item 8b)")
+            from demonet_tpu_torch.data import native
+
+            if max_kp or with_masks:
+                raise ValueError(
+                    "native_decode path batches boxes/labels only; "
+                    "max_kp/with_masks need the Python assembly path")
+            if num_workers > 0:
+                raise ValueError(
+                    "native_decode already parallelizes in C++ threads; "
+                    "combine with num_workers=0")
+            if not hasattr(dataset, "raw_item"):
+                raise ValueError("dataset lacks raw_item(); cannot use "
+                                 "native_decode")
+            if not native.available():
+                raise RuntimeError(
+                    "native_decode requested but the native image library "
+                    f"cannot be built: {native.build_error()}")
+            self.native_decode = True
 
     def set_epoch(self, epoch: int) -> None:
         """Reshuffle per epoch (reference DistributedSampler.set_epoch,
@@ -297,11 +315,58 @@ class DetectionLoader:
         return -(-n // self.batch_size)
 
     def _assemble(self, ds_indices: np.ndarray) -> Dict[str, np.ndarray]:
+        if self.native_decode:
+            return self._assemble_native(ds_indices)
         return _assemble_batch(
             self.dataset, ds_indices, self.batch_size, self.image_size,
             self.max_gt, self.seed, self.epoch, self._rng_aware,
             max_kp=self.max_kp, with_masks=self.with_masks,
             image_dtype=self.image_dtype)
+
+    def _assemble_native(self, ds_indices: np.ndarray) -> Dict[str, np.ndarray]:
+        """Batch decode+resize in C++ (one call), targets from metadata."""
+        from demonet_tpu_torch.data import native
+
+        b = self.batch_size
+        nh, nw = self.image_size
+        g = self.max_gt
+        blobs, targets = [], []
+        for ds_idx in ds_indices:
+            blob, target = self.dataset.raw_item(int(ds_idx))
+            blobs.append(blob)
+            targets.append(target)
+        images, hw = native.decode_jpeg_batch(
+            blobs, nh, nw, self.native_threads)
+
+        out = {
+            "images": np.zeros((b, nh, nw, 3), self.image_dtype),
+            "gt_boxes": np.zeros((b, g, 4), np.float32),
+            "gt_labels": np.zeros((b, g), np.int32),
+            "gt_valid": np.zeros((b, g), bool),
+            "image_ids": np.zeros((b,), np.int64),
+            "original_sizes": np.zeros((b, 2), np.int32),
+            "batch_valid": np.zeros((b,), bool),
+        }
+        n = len(ds_indices)
+        if self.image_dtype == np.uint8 and images.dtype != np.uint8:
+            images = np.clip(np.rint(images * 255.0), 0, 255).astype(np.uint8)
+        out["images"][:n] = images
+        out["original_sizes"][:n] = hw
+        for i, target in enumerate(targets):
+            h, w = hw[i]
+            boxes = np.asarray(target.get("boxes", np.zeros((0, 4))))
+            if len(boxes):
+                boxes = boxes * np.asarray(
+                    [nw / w, nh / h, nw / w, nh / h], np.float32)
+            labels = np.asarray(target.get("labels", np.zeros((0,))))
+            k = min(len(boxes), g)
+            if k:
+                out["gt_boxes"][i, :k] = boxes[:k]
+                out["gt_labels"][i, :k] = labels[:k]
+                out["gt_valid"][i, :k] = True
+            out["image_ids"][i] = target.get("image_id", int(ds_indices[i]))
+            out["batch_valid"][i] = True
+        return out
 
     def _batch_indices(self) -> Iterator[np.ndarray]:
         if self.batch_sampler is not None:

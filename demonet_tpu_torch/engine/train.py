@@ -143,7 +143,8 @@ def train_one_epoch(
     make_train_step(..., steps_per_call=K) step), batches are stacked in
     windows of K and run by it; the short tail of the epoch runs single
     steps. The metrics writer (anything with `write(step, metrics)`) gets
-    every step, with its learning rate.
+    every step, with its learning rate, and is flushed at the end of the
+    epoch where it has a `flush()`.
     """
     if mesh is not None:
         raise _unported("train_one_epoch(mesh=...)", "ROADMAP Queue 1, item 10")
@@ -201,4 +202,6 @@ def train_one_epoch(
 
     _run_window()
     _drain()
+    if hasattr(metrics_writer, "flush"):
+        metrics_writer.flush()
     return state

@@ -125,7 +125,9 @@ def _nms_keep(cand_boxes: torch.Tensor, cand_scores: torch.Tensor,
     """Keep mask for (P, K) score-sorted candidate sets.
 
     'auto' = the kernel wrapper (csrc/nms.cu on CUDA, the plain version on
-    the CPU); 'plain' = the plain PyTorch version on any device.
+    the CPU); 'plain' = the plain PyTorch version on any device. The
+    wrapper takes contiguous tensors only: at B = 1 the scores come out of
+    the per-class sort transposed in memory, so they are copied here.
     """
     if nms_impl == "auto":
         fn = nms_keep_batch
@@ -133,7 +135,8 @@ def _nms_keep(cand_boxes: torch.Tensor, cand_scores: torch.Tensor,
         fn = nms_keep_batch_plain
     else:
         raise ValueError(f"nms_impl must be 'auto' or 'plain', got {nms_impl!r}")
-    return fn(cand_boxes, cand_scores, config.nms_thresh, _NEG_INF / 2)
+    return fn(cand_boxes.contiguous(), cand_scores.contiguous(),
+              config.nms_thresh, _NEG_INF / 2)
 
 
 def _gather_rows(table: torch.Tensor, idx: torch.Tensor,

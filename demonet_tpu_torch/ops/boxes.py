@@ -101,3 +101,43 @@ def clip_boxes_to_image(boxes: torch.Tensor, size: Tuple[int, int]
     h, w = size
     limits = boxes.new_tensor([w, h, w, h])
     return torch.minimum(boxes.clamp(min=0.0), limits)
+
+
+def generalized_box_iou(boxes1: torch.Tensor, boxes2: torch.Tensor
+                        ) -> torch.Tensor:
+    """Pairwise GIoU (https://giou.stanford.edu/): (..., M, 4) x (..., N, 4)
+    -> (..., M, N), with the enclosing box's area guarded at 1e-9."""
+    iou, union = box_iou(boxes1, boxes2)
+    lt = torch.minimum(boxes1[..., :, None, :2], boxes2[..., None, :, :2])
+    rb = torch.maximum(boxes1[..., :, None, 2:], boxes2[..., None, :, 2:])
+    wh = (rb - lt).clamp(min=0.0)
+    enclosing = wh[..., 0] * wh[..., 1]
+    return iou - (enclosing - union) / enclosing.clamp(min=1e-9)
+
+
+def remove_small_boxes_mask(boxes: torch.Tensor, min_size: float
+                            ) -> torch.Tensor:
+    """Boolean mask of the boxes whose sides are both >= min_size (a mask
+    where torchvision's `remove_small_boxes` gives an index set)."""
+    wh = boxes[..., 2:] - boxes[..., :2]
+    return (wh[..., 0] >= min_size) & (wh[..., 1] >= min_size)
+
+
+def masks_to_boxes(masks: torch.Tensor) -> torch.Tensor:
+    """xyxy bounding boxes of binary masks: (..., N, H, W) -> (..., N, 4)
+    float32; an empty mask gives zeros. Pixels are taken as their integer
+    coordinates, as in the JAX package (±1e8 stand for "no pixel")."""
+    h, w = masks.shape[-2:]
+    ys = torch.arange(h, dtype=torch.float32, device=masks.device)
+    xs = torch.arange(w, dtype=torch.float32, device=masks.device)
+    m = masks.to(torch.float32)
+    any_mask = masks.to(torch.bool).flatten(-2).any(-1)
+    big = torch.tensor(1e8, dtype=torch.float32, device=masks.device)
+    x_proj = m.amax(dim=-2)   # (..., N, W)
+    y_proj = m.amax(dim=-1)   # (..., N, H)
+    x_min = torch.where(x_proj > 0, xs, big).amin(-1)
+    x_max = torch.where(x_proj > 0, xs, -big).amax(-1)
+    y_min = torch.where(y_proj > 0, ys, big).amin(-1)
+    y_max = torch.where(y_proj > 0, ys, -big).amax(-1)
+    boxes = torch.stack([x_min, y_min, x_max, y_max], dim=-1)
+    return torch.where(any_mask[..., None], boxes, torch.zeros_like(boxes))

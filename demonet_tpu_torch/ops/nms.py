@@ -20,6 +20,12 @@ the tiled one above, where there are few long ones (the fused path:
 P = B, K = 1,024 or 2,048): `launch_shape(K)`. On the card, K above
 8,192 raises.
 
+The public `nms_mask`, `nms` and `batched_nms` (counterparts of
+demonet_tpu/ops/nms.py) take one unsorted problem of N boxes: they sort
+it stably by score, run it through `nms_keep_batch` as P = 1, K = N (the
+kernel on a CUDA tensor, so N <= 8,192 there; the plain version on the
+CPU), and scatter the keep mask back to the original order.
+
 The IoU is computed term by term as the reference writes it:
 inter = max(min(x2) - max(x1), 0) * max(min(y2) - max(y1), 0),
 union = area_j + area_i - inter, iou = inter / max(union, 1e-9), and a
@@ -30,6 +36,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Tuple
 
 import torch
 
@@ -141,3 +148,71 @@ def nms_keep_batch(boxes: torch.Tensor, scores: torch.Tensor,
 
 
 nms_keep_batch.launches = 0
+
+
+# scores at or below this are padding in the public API (the JAX default)
+_NEG_INF = -1e30
+
+
+def nms_mask(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float,
+             score_threshold: float = _NEG_INF) -> torch.Tensor:
+    """Greedy NMS keep mask of one problem, in the original box order.
+
+    Args:
+      boxes: (N, 4) float32 xyxy.
+      scores: (N,) float32. Entries with score <= score_threshold are
+        padding: never kept, never suppress anything.
+      iou_threshold: j is suppressed when IoU(i, j) > threshold for an
+        earlier-kept i.
+
+    Candidates are ordered by descending score, ties by index (a stable
+    sort of the negated score, padding last, as `jnp.argsort` orders
+    them). On a CUDA tensor the ordered problem goes to the kernel, which
+    takes N <= 8,192 (`MAX_K`): above it `nms_keep_batch` raises
+    ValueError naming the limit.
+    """
+    n = boxes.shape[0]
+    valid = scores > score_threshold
+    key = -torch.where(valid, scores, scores.new_tensor(_NEG_INF))
+    order = torch.sort(key, stable=True)[1]
+    keep_sorted = nms_keep_batch(boxes[order][None].contiguous(),
+                                 scores[order][None].contiguous(),
+                                 iou_threshold, score_threshold)[0]
+    keep = torch.zeros(n, dtype=torch.bool, device=boxes.device)
+    return keep.index_put_((order,), keep_sorted)
+
+
+def nms(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float,
+        max_output: int, score_threshold: float = _NEG_INF
+        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Greedy NMS: the indices of the kept boxes by descending score
+    (ties by index), padded to `max_output` (<= N).
+
+    Returns (indices (max_output,) int64, valid (max_output,) bool); the
+    padding indices are 0 with valid False.
+    """
+    if max_output > boxes.shape[0]:
+        raise ValueError(f"nms: max_output={max_output} exceeds the "
+                         f"{boxes.shape[0]} boxes")
+    keep = nms_mask(boxes, scores, iou_threshold, score_threshold)
+    kept_scores = torch.where(keep, scores, scores.new_tensor(_NEG_INF))
+    top_scores, idx = torch.sort(kept_scores, descending=True, stable=True)
+    top_scores, idx = top_scores[:max_output], idx[:max_output]
+    valid = top_scores > _NEG_INF / 2
+    return torch.where(valid, idx, torch.zeros_like(idx)), valid
+
+
+def batched_nms(boxes: torch.Tensor, scores: torch.Tensor,
+                labels: torch.Tensor, iou_threshold: float, max_output: int,
+                score_threshold: float = _NEG_INF
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Class-aware NMS: boxes of different `labels` never suppress each
+    other. Each class is moved to its own coordinate range (label times
+    the largest valid coordinate plus one) and one class-agnostic `nms`
+    runs over all of them."""
+    live = torch.where(scores > score_threshold, boxes.amax(dim=-1),
+                       boxes.new_tensor(0.0))
+    max_coord = live.amax() if live.numel() else boxes.new_tensor(0.0)
+    offsets = labels.to(boxes.dtype)[:, None] * (max_coord + 1.0)
+    return nms(boxes + offsets, scores, iou_threshold, max_output,
+               score_threshold)

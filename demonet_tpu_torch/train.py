@@ -20,10 +20,13 @@ mirror the reference recipe: lr 0.02, SGD momentum 0.9, weight decay
 1e-4, epochs 26, MultiStepLR [16, 22] gamma 0.1, linear warmup 1000 iters
 (train.py:59-75, engine.py:21-25). One process on one device: the JAX
 CLI's data mesh and multi-host bootstrap wait for ROADMAP Queue 1 item 10.
-Flags of what is not ported raise NotImplementedError naming the ROADMAP
-item: `--bf16` and `--remat` (7b); `--pretrained`, `--torch-weights` and
-`--tensorboard` (8b); `--lane-pack` and `--stem-s2d` are TPU layout knobs,
-not ported on purpose.
+`--pretrained` and `--torch-weights` load a checkpoint in the reference's
+torch layout (`utils.pretrained`, `utils.torch_weights`) before
+`--npz-weights` applies; `--tensorboard` adds TensorBoard scalars where
+the `tensorboard` package imports. Flags of what is not ported raise
+NotImplementedError naming the ROADMAP item: `--bf16` and `--remat`
+(7b); `--lane-pack` and `--stem-s2d` are TPU layout knobs, not ported on
+purpose.
 """
 
 from __future__ import annotations
@@ -100,11 +103,11 @@ def get_args_parser(add_help: bool = True) -> argparse.ArgumentParser:
                              "generalized_ssd.py:158)")
     parser.add_argument("--test-only", dest="test_only", action="store_true")
     parser.add_argument("--pretrained", action="store_true",
-                        help="start from the published reference checkpoint; "
-                             "not ported yet (raises)")
+                        help="start from the published reference checkpoint "
+                             "in the weights cache (utils/pretrained.py)")
     parser.add_argument("--torch-weights", default="",
                         help="a torch .pth checkpoint in the reference "
-                             "state_dict layout; not ported yet (raises)")
+                             "state_dict layout")
     parser.add_argument("--npz-weights", default="",
                         help="flat .npz variables (the committed bench-asset "
                              "layout) to load as model weights — e.g. for "
@@ -113,8 +116,8 @@ def get_args_parser(add_help: bool = True) -> argparse.ArgumentParser:
     parser.add_argument("--bf16", action="store_true",
                         help="bfloat16 compute; not ported yet (raises)")
     parser.add_argument("--tensorboard", action="store_true",
-                        help="also write TensorBoard scalars; not ported yet "
-                             "(raises)")
+                        help="also write TensorBoard scalars (where the "
+                             "tensorboard package imports)")
     parser.add_argument("--device", default="cuda",
                         help="the device to train and evaluate on: 'cuda' "
                              "(the default) or 'cpu'")
@@ -124,9 +127,6 @@ def get_args_parser(add_help: bool = True) -> argparse.ArgumentParser:
 _UNPORTED_FLAGS = (
     ("bf16", "--bf16", "ROADMAP Queue 1, item 7b"),
     ("remat", "--remat", "ROADMAP Queue 1, item 7b"),
-    ("pretrained", "--pretrained", "ROADMAP Queue 1, item 8b"),
-    ("torch_weights", "--torch-weights", "ROADMAP Queue 1, item 8b"),
-    ("tensorboard", "--tensorboard", "ROADMAP Queue 1, item 8b"),
     ("lane_pack", "--lane-pack", "a TPU layout knob, not ported on purpose"),
     ("stem_s2d", "--stem-s2d", "a TPU layout knob, not ported on purpose"),
 )
@@ -262,6 +262,12 @@ def main(args):
         mask = mobilenet_trainable_mask(
             detector.model, args.trainable_backbone_layers)
         tx = masked_optimizer(tx, mask)
+    if args.pretrained or args.torch_weights:
+        from demonet_tpu_torch.utils.pretrained import load_pretrained
+
+        load_pretrained(detector.model, args.model,
+                        path=args.torch_weights or None)
+        print(f"loaded pretrained weights for {args.model}")
     if getattr(args, "npz_weights", ""):
         from demonet_tpu_torch.utils.checkpoints import load_npz_variables
         from demonet_tpu_torch.utils.weights import load_jax_variables
@@ -290,7 +296,13 @@ def main(args):
 
     from demonet_tpu_torch.utils.metrics_writer import MetricsWriter
 
-    writer = MetricsWriter(args.output_dir or ".")
+    writer = MetricsWriter(args.output_dir or ".",
+                           tensorboard=args.tensorboard)
+    if args.tensorboard:
+        print("tensorboard scalars: " + (
+            "on" if writer.tensorboard else
+            "off (the tensorboard package does not import); metrics.jsonl "
+            "only"))
     print("Start training")
     start = time.time()
     evaluator = None

@@ -23,6 +23,10 @@ Every leaf is cast to float32 and lands in the module's state_dict by rule:
 It is strict: every parameter and buffer of the module is filled exactly
 once (`num_batches_tracked` excepted), a shape mismatch raises, and a key
 the module has no place for raises.
+
+`jax_variables_of(model)` is the inverse: a module's weights as the
+nested JAX tree (with `utils.torch_weights.synthesize_torch_state_dict`,
+a port model's weights as a reference-layout .pth).
 """
 
 from __future__ import annotations
@@ -100,3 +104,36 @@ def load_jax_variables(model: nn.Module, variables: Mapping[str, Any]) -> None:
     if missing:
         raise KeyError(f"{len(missing)} entries of {type(model).__name__} "
                        f"have no JAX variable, e.g. {missing[:5]}")
+
+
+def jax_variables_of(model: nn.Module) -> Dict[str, Any]:
+    """The module's parameters and BN statistics as the JAX package's
+    {'params': ..., 'batch_stats': ...} tree of float32 numpy arrays:
+    the inverse of `load_jax_variables` (a 1-D `weight` is a BN scale,
+    a 4-D or 2-D one a conv or Dense kernel)."""
+    inverse = {name: key for key, name in _LEAF.items()
+               if key != ("params", "scale")}
+    tree: Dict[str, Any] = {}
+    for name, value in model.state_dict().items():
+        *path, leaf = name.split(".")
+        if leaf == "num_batches_tracked":
+            continue
+        arr = value.detach().cpu().numpy().astype(np.float32)
+        collection, jax_leaf = inverse[leaf]
+        if leaf == "weight" and arr.ndim == 1:
+            jax_leaf = "scale"
+        elif arr.ndim == 4:   # (O, I/g, H, W) -> (H, W, I/g, O)
+            arr = arr.transpose(2, 3, 1, 0)
+        elif arr.ndim == 2:   # Linear (out, in) -> Dense (in, out)
+            arr = arr.T
+        segs = []
+        for seg in path:   # "blocks", "3" -> "blocks_3"
+            if seg.isdigit():
+                segs[-1] = f"{segs[-1]}_{seg}"
+            else:
+                segs.append(seg)
+        node = tree.setdefault(collection, {})
+        for seg in segs:
+            node = node.setdefault(seg, {})
+        node[jax_leaf] = np.ascontiguousarray(arr)
+    return tree

@@ -47,8 +47,7 @@ def test_parser_keeps_every_jax_flag_and_default():
 
 
 @pytest.mark.parametrize("flag,where", [
-    (["--bf16"], "7b"), (["--remat"], "7b"), (["--pretrained"], "8b"),
-    (["--torch-weights", "w.pth"], "8b"), (["--tensorboard"], "8b"),
+    (["--bf16"], "7b"), (["--remat"], "7b"),
     (["--lane-pack"], "on purpose"), (["--stem-s2d"], "on purpose"),
 ])
 def test_unported_flags_raise(flag, where):

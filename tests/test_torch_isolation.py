@@ -43,7 +43,8 @@ def test_import_pulls_in_no_jax():
         "utils.weights", "data", "data.coco", "data.coco_eval",
         "data.group_by_aspect_ratio", "data.loader", "data.presets",
         "data.synthetic", "data.transforms", "data.voc", "data.voc_eval",
-        "train"))
+        "data.native", "utils.torch_weights", "utils.pretrained", "utils.viz",
+        "utils.debug", "hub", "predict", "eval_voc", "train"))
     code = (f"import demonet_tpu_torch, {modules}; import sys; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'optax', 'orbax', 'demonet_tpu', 'triton')]; "

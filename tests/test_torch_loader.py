@@ -167,10 +167,14 @@ def test_two_worker_pool_equals_serial_and_jax():
 
 
 def test_native_decode_is_not_ported():
-    _, ds = _datasets()
-    with pytest.raises(NotImplementedError, match="8b"):
-        DetectionLoader(ds, batch_size=2, image_size=(64, 64),
-                        native_decode=True)
+    """The native decode path is refused for a dataset it cannot serve,
+    as the JAX loader refuses it: synthetic frames have no JPEG bytes
+    (`raw_item`). tests/test_torch_native_decode.py holds the path."""
+    ds_w, ds = _datasets()
+    for loader in (JaxLoader, DetectionLoader):
+        with pytest.raises(ValueError, match="raw_item"):
+            loader(ds_w if loader is JaxLoader else ds, batch_size=2,
+                   image_size=(64, 64), native_decode=True)
     with pytest.raises(ValueError, match="image_dtype"):
         DetectionLoader(ds, batch_size=2, image_size=(64, 64),
                         image_dtype="float16")
