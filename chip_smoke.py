@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 The main paths are flagship inference and flagship training of
-ssdlite320_mobilenet_v3_large (91 classes, 320x320, fp32), from the
+ssdlite320_mobilenet_v3_large (91 classes, 320x320, fp32 and, since the
+bf16 phases, bf16 compute), from the
 trained weights of bench_assets/ssdlite320_shapes_trained.npz loaded by
 `load_jax_variables`: predict through `make_predict_step` in each of its
 serving modes (the reference postprocess, the fused serving postprocess
@@ -119,7 +120,34 @@ package. The script prints one JSON line per phase:
                warm weights cache (the --npz-weights summary); the native
                JPEG loader against the Python loader, where g++ and
                <jpeglib.h> are there; the CLIs' printing goes to
-               chiprun_out/entry_points.log
+               chiprun_out/entry_points.log. K1's long launch (N above
+               8,192) at N = 8,193, 16,384 and 20,000, bit-equal to the
+               plain version on a CPU copy, timed, with its scratch
+               bytes; the public calls at 20,000, K1 once each, against
+               the plain keep (nms_mask, nms) and the CPU's batched_nms
+  bf16_serving the flagship with bf16 compute from the trained npz: the
+               head outputs and a trunk conv's input and output bf16 (no
+               quiet float32); 4 requests of 32 per mode with the float32
+               paths' launch counts; each mode's detections equal to the
+               reference postprocess's on the same bf16 heads; K1, K2, K3
+               bit-equal to their plain versions on the bf16 path's
+               (float32, cast) inputs; heads against the CPU's bf16 model
+               and the card's float32 one, in bf16 ulps of their scale;
+               forward ms in both dtypes, postprocess ms and img/s per
+               mode at b32 and b128; a trace of a bf16 b128 batch
+  bf16_train   the flagship's bf16 step at b32 and b128 (ms, peak memory,
+               split, a b128 trace); loss terms at B = 4 on the card and
+               the CPU; remat at b128: ms and peak memory with and
+               without, and 2 steps with it bit-equal to 2 without under
+               cuDNN's deterministic algorithms, the BN statistics moved
+  bf16_families  the four other detectors in bf16 (family_detectors'
+               weights): one counted request of 32 per mode, detections
+               equal to the reference postprocess's; forward ms in both
+               dtypes and img/s per mode at b32 and b128; VGG's top
+               kernels in a bf16 forward; one bf16 train step each
+  bf16_cli     the train CLI with --bf16: an epoch of 64 synthetic frames
+               with a checkpoint, --test-only --resume with --bf16 (the
+               same summary) and without it
   launch_floor the device time of a one-float fill, the shortest kernel
 
 then `previous_design` (K1's, K3's and K4's times before their
@@ -184,12 +212,14 @@ _QUEUE_SLEEP_CYCLES = 200_000_000
 def emit(obj):
     """One JSON line to stdout, and to chiprun_out/chip_smoke.jsonl, whole
     (a long output may be cut to its end where it is read back), with the
-    seconds since the script started as `t_s`."""
-    print(json.dumps(obj), flush=True)
+    seconds since the script started as `t_s` (on stdout too, but for the
+    last line, which stays exactly the contract's)."""
+    line = dict(obj, t_s=time.perf_counter() - _T0)
+    last = set(obj) == {"ok", "device"}
+    print(json.dumps(obj if last else line), flush=True)
     os.makedirs(os.path.dirname(_LOG), exist_ok=True)
     with open(_LOG, "a") as fh:
-        fh.write(json.dumps(dict(obj, t_s=time.perf_counter() - _T0))
-                 + "\n")
+        fh.write(json.dumps(line) + "\n")
 
 
 def cuda_ms(fn, iters, warmup=2):
@@ -933,9 +963,11 @@ def train_batch(seed, b, device):
     return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
 
 
-def trained_detector(device, seed=0):
-    """ssdlite320_mobilenet_v3_large with the trained npz's weights."""
+def trained_detector(device, seed=0, dtype=None):
+    """ssdlite320_mobilenet_v3_large with the trained npz's weights, in
+    the compute dtype asked for (float32 by default)."""
     import numpy as np
+    import torch
 
     from demonet_tpu_torch.models.builders import (
         ssdlite320_mobilenet_v3_large,
@@ -943,7 +975,8 @@ def trained_detector(device, seed=0):
     from demonet_tpu_torch.utils.weights import load_jax_variables
 
     det = ssdlite320_mobilenet_v3_large(num_classes=91, device=device,
-                                        seed=seed)
+                                        seed=seed,
+                                        dtype=dtype or torch.float32)
     with np.load(_NPZ) as z:
         load_jax_variables(det.model, {k: z[k] for k in z.files})
     return det
@@ -2025,6 +2058,8 @@ def cli_synthetic(reset_counts, read_counts):
 _ENTRY_FRAMES = 8
 _ENTRY_FRAME_HW = (480, 640)
 _PUBLIC_NMS_N = (1000, 8192)
+# K1's long launch (N > 8,192), the public calls at the largest
+_LONG_NMS_N = (8193, 16384, 20000)
 _PUBLIC_NMS_IOU = 0.55
 _VOC_FRAMES, _VOC_BATCH = 64, 32
 _NATIVE_FRAMES = 64
@@ -2184,10 +2219,12 @@ def entry_points(trained, batches, sizes, reset_counts, read_counts):
     from demonet_tpu_torch.models import detection
     from demonet_tpu_torch.ops.nms import (
         batched_nms,
+        launch_shape,
         nms,
         nms_keep_batch,
         nms_keep_batch_plain,
         nms_mask,
+        scratch_bytes,
     )
     from demonet_tpu_torch.utils.checkpoints import load_npz_variables
     from demonet_tpu_torch.utils.pretrained import (
@@ -2405,7 +2442,7 @@ def entry_points(trained, batches, sizes, reset_counts, read_counts):
             api_ms = {api: timed(lambda fn=fn: fn(b, s, lab), 20)["ms"]
                       for api, fn in apis.items()}
             public[name] = {
-                "shape": [1, n], "launch": "block" if n <= 512 else "tiled",
+                "shape": [1, n], "launch": launch_shape(n),
                 "ms": k_t["ms"], "plain_ms": plain_ms,
                 "plain_ms_from": "events", "bound_ms": bms,
                 "bound_by": by, "library_ms": None,
@@ -2414,6 +2451,79 @@ def entry_points(trained, batches, sizes, reset_counts, read_counts):
                 "bytes": nbytes, "ops": ops, "kept": int(keep.sum()),
                 "event_ms": k_t["event_ms"], "ms_from": k_t["ms_from"],
                 "public_call_ms": api_ms}
+        # K1's long launch (N > 8,192): straight, against the plain
+        # version on a CPU copy (on the card it issues ~12 launches a
+        # sweep step: seconds at these N); then the public calls at the
+        # largest N, K1 once each
+        gen = torch.Generator().manual_seed(44)
+        long_cases = {}
+        for n in _LONG_NMS_N:
+            xy = torch.rand((n, 2), generator=gen) * 1000
+            wh = torch.rand((n, 2), generator=gen) * 90 + 10
+            bx_c = torch.cat([xy, xy + wh], 1)
+            sc_c = torch.rand(n, generator=gen)
+            lab_c = torch.randint(0, 90, (n,), generator=gen)
+            order = torch.sort(-sc_c, stable=True)[1]
+            b1c, s1c = (bx_c[order][None].contiguous(),
+                        sc_c[order][None].contiguous())
+            b1, s1 = b1c.to(dev), s1c.to(dev)
+            thr = -1e30
+            keep = nms_keep_batch(b1, s1, _PUBLIC_NMS_IOU, thr)
+            t0 = time.perf_counter()
+            want = nms_keep_batch_plain(b1c, s1c, _PUBLIC_NMS_IOU, thr)
+            plain_s = time.perf_counter() - t0
+            record_err(("nms_keep_batch", "nms_keep_batch/public"),
+                       keep.cpu(), want)
+            check(torch.equal(keep.cpu(), want),
+                  f"K1's {launch_shape(n)} launch at N = {n} != plain")
+            nbytes, ops = nms_work(keep, s1, thr)
+            bms, by = bound(nbytes, ops)
+            k_t = timed(lambda: nms_keep_batch(b1, s1, _PUBLIC_NMS_IOU, thr),
+                        10)
+            public[f"random_N{n}"] = {
+                "shape": [1, n], "launch": launch_shape(n), "ms": k_t["ms"],
+                "plain_ms": plain_s * 1e3,
+                "plain_ms_from": "host clock, the plain version on a CPU "
+                                 "copy",
+                "bound_ms": bms, "bound_by": by, "library_ms": None,
+                "library": "none: no PyTorch call",
+                "scratch_bytes": scratch_bytes(1, n),
+                "bytes": nbytes, "ops": ops, "kept": int(keep.sum()),
+                "event_ms": k_t["event_ms"], "ms_from": k_t["ms_from"]}
+            long_cases[n] = (bx_c, sc_c, lab_c, order, want[0])
+        bx_c, sc_c, lab_c, order, want = long_cases[max(_LONG_NMS_N)]
+        on = tuple(t.to(dev).contiguous() for t in (bx_c, sc_c, lab_c))
+        for fn in apis.values():   # warm-up, outside the count
+            fn(*on)
+        got = counted("public_nms_long", lambda: {
+            api: fn(*on) for api, fn in apis.items()})
+        check(launches["entry_points/public_nms_long"]["nms_keep_batch"]
+              == len(apis), "public NMS at N = "
+              f"{max(_LONG_NMS_N)}: launches "
+              f"{launches['entry_points/public_nms_long']}, want K1 once "
+              "per call")
+        # nms_mask against the plain keep in the original order; nms
+        # against the kept boxes by score, ties by index; batched_nms
+        # against its plain twin on the CPU
+        mask_want = torch.zeros_like(want).index_put_((order,), want)
+        kept_scores = torch.where(mask_want, sc_c, torch.tensor(-1e30))
+        top_sc, top_idx = torch.sort(kept_scores, descending=True,
+                                     stable=True)
+        nms_valid = top_sc[:300] > -5e29
+        nms_want = (torch.where(nms_valid, top_idx[:300],
+                                torch.zeros_like(top_idx[:300])), nms_valid)
+        batched_want = apis["batched_nms"](bx_c, sc_c, lab_c)  # CPU: plain
+        for api, w in (("nms_mask", (mask_want,)), ("nms", nms_want),
+                       ("batched_nms", batched_want)):
+            g = got[api] if isinstance(got[api], tuple) else (got[api],)
+            for gi, wi in zip(g, w):
+                record_err(("nms_keep_batch", "nms_keep_batch/public"),
+                           gi.cpu().float(), wi.float())
+                check(torch.equal(gi.cpu(), wi),
+                      f"public {api} at N = {max(_LONG_NMS_N)}: != plain")
+        public[f"random_N{max(_LONG_NMS_N)}"]["public_call_ms"] = {
+            api: timed(lambda fn=fn: fn(*on), 3)["ms"]
+            for api, fn in apis.items()}
         public_err = _MAX_ERR.get("nms_keep_batch/public", 0.0)
         lap("public_nms")
 
@@ -2590,6 +2700,548 @@ def entry_points(trained, batches, sizes, reset_counts, read_counts):
           "native_decode": native_line})
     return {"launches_by_path": launches, "public_nms": public,
             "public_nms_err": public_err}
+
+
+# -- bf16 compute and remat ----------------------------------------------------
+# a bf16 model's head outputs against the CPU's bf16 model and against the
+# card's float32 model: the largest difference in bf16 ulps of the
+# output's scale, ulp(s) = 2^(floor(log2 s) - 7). The CPU tests hold the
+# port's bf16 models within 1-2 ulps of the JAX package's, as far as the
+# JAX bf16 model is from its float32 twin; the trained flagship at 320 is
+# deeper, and cuDNN's bf16 convs sum in their own orders
+_BF16_HEAD_ULPS_CPU = 8
+_BF16_HEAD_ULPS_FP32 = 16
+# bf16 train loss terms, card against CPU, one step at B = 4 from the
+# trained weights: relative, 2.5 bf16 ulps (the CPU tests find two bf16
+# steps 0.2-0.5 % apart in their loss terms at B = 4)
+_BF16_LOSS_RTOL = 2e-2
+_BF16_MODES = {"reference": {}, "fused": {"impl": "fused"},
+               "sparse_topk": {"topk_impl": "sparse_pallas"}}
+# (batch, closed-loop batches) of the flagship's and the families' bf16
+# serving
+_BF16_E2E = ((32, 10), (128, 6))
+_BF16_FAMILY_E2E = ((32, 3), (128, 2))
+
+
+def bf16_ulps(got, want):
+    """max |got - want| in bf16 ulps of max |want|."""
+    import math
+
+    g, w = got.float().cpu(), want.float().cpu()
+    scale = float(w.abs().max())
+    return float((g - w).abs().max()) / 2.0 ** (
+        math.floor(math.log2(scale)) - 7)
+
+
+def step_timing(det, batch, iters, remat=False, lr=_TRAIN_LR):
+    """Closed-loop train steps from a fresh SGD state on the card: ms per
+    step (median, q1-q3), img/s, peak memory from before the first step,
+    the forward/loss/backward/optimizer split by CUDA events (median of
+    3), the last loss (finite, or fail); every timed step under
+    sync_errors."""
+    import numpy as np
+    import torch
+
+    from demonet_tpu_torch.engine.state import (
+        create_train_state,
+        make_optimizer,
+    )
+    from demonet_tpu_torch.engine.train import make_train_step
+
+    bs = int(batch["images"].shape[0])
+    state = create_train_state(det, make_optimizer(
+        lr, _TRAIN_MOMENTUM, _TRAIN_WD))
+    step = make_train_step(det, remat=remat)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(2):
+        step(state, batch)
+    torch.cuda.synchronize()
+    per_step = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        with sync_errors():
+            state, m = step(state, batch)
+        torch.cuda.synchronize()
+        per_step.append((time.perf_counter() - t0) * 1e3)
+    split = {p: [] for p in _TRAIN_PHASES}
+    for _ in range(3):
+        marks = {"start": torch.cuda.Event(enable_timing=True)}
+
+        def on_phase(name, marks=marks):
+            marks[name] = torch.cuda.Event(enable_timing=True)
+            marks[name].record()
+
+        marks["start"].record()
+        with sync_errors():
+            state, m = step(state, batch, on_phase=on_phase)
+        torch.cuda.synchronize()
+        prev = "start"
+        for p in _TRAIN_PHASES:
+            split[p].append(marks[prev].elapsed_time(marks[p]))
+            prev = p
+    loss = float(m["loss"])
+    check(np.isfinite(loss), f"train step (batch {bs}, remat {remat}): "
+          f"loss {loss}")
+    q1, med, q3 = np.percentile(per_step, [25, 50, 75])
+    return {"batch": bs, "remat": remat, "lr": lr, "ms_per_step_median": med,
+            "ms_per_step_q1_q3": [q1, q3], "n": iters,
+            "img_per_s": bs / med * 1e3,
+            "split_ms_median": {p: float(np.median(v))
+                                for p, v in split.items()},
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "last_loss": loss, "step": step, "state": state}
+
+
+def bf16_serving(trained, batches, sizes, reset_counts, read_counts):
+    """The flagship in bf16 from the trained npz: no quiet float32 (the
+    head outputs and a hooked trunk conv's input and output are bf16);
+    4 requests of 32 per serving mode, counts reset before and read
+    after, as in float32; each mode's detections equal to the reference
+    postprocess's on the same bf16 head outputs; K1, K2 and K3 bit-equal
+    to their plain versions on the bf16 path's inputs; the card's bf16
+    heads against the CPU's bf16 model and the card's float32 one;
+    forward and postprocess ms and closed-loop img/s at b32 and b128 in
+    both dtypes, and a trace of a bf16 b128 batch. Returns the counts by
+    path."""
+    import numpy as np
+    import torch
+
+    from demonet_tpu_torch.engine.evaluate import make_predict_step
+    from demonet_tpu_torch.models import detection
+    from demonet_tpu_torch.models.detection import (
+        _NEG_INF,
+        postprocess_detections,
+        preprocess,
+    )
+    from demonet_tpu_torch.ops.gather import (
+        gather_rows_batch,
+        gather_rows_batch_plain,
+    )
+    from demonet_tpu_torch.ops.nms import (
+        nms_keep_batch,
+        nms_keep_batch_plain,
+    )
+    from demonet_tpu_torch.ops.topk import topk_sparse, topk_sparse_plain
+
+    t0_phase = time.perf_counter()
+    bf16 = torch.bfloat16
+    det = trained_detector("cuda", dtype=bf16)
+    cfg, b = det.config, batches[0].shape[0]
+    anchors = torch.as_tensor(det.anchors, device="cuda")
+    branches = detection._postprocess_fused.branches
+    conv = det.model.extractor.trunk.blocks[5].expand_conv.conv
+    seen = []
+    hook = conv.register_forward_hook(
+        lambda m, args, out: seen.append((args[0].dtype, out.dtype)))
+    with torch.inference_mode():
+        out16 = det.model(preprocess(batches[0], cfg, resize=False))
+        out32 = trained.model(preprocess(batches[0], cfg, resize=False))
+    hook.remove()
+    check(det.dtype == bf16 and seen == [(bf16, bf16)]
+          and all(out16[k].dtype == bf16 for k in out16),
+          f"the bf16 model ran {seen}, heads "
+          f"{[out16[k].dtype for k in out16]}: not bf16")
+
+    # -- the three modes, counted ----------------------------------------
+    launches, paths = {}, {}
+    want_counts = {mode: {"nms_keep_batch": 4, "gather_rows_batch": 8,
+                          "topk_sparse": 4 if mode == "sparse_topk" else 0,
+                          "fused_inverted_residual": 0,
+                          "topk_sparse_long": 0} for mode in _BF16_MODES}
+    for mode, kw in _BF16_MODES.items():
+        step = make_predict_step(det, **kw)
+        step(det.model, batches[0], sizes)
+        torch.cuda.synchronize()
+        reset_counts()
+        dets, taken = [], []
+        for x in batches:
+            before = dict(branches)
+            dets.append(step(det.model, x, sizes))
+            taken.extend(k for k in branches
+                         if branches[k] != before.get(k, 0))
+        torch.cuda.synchronize()
+        counts = read_counts()
+        check(counts == want_counts[mode]
+              and (mode != "fused" or len(taken) == len(batches)),
+              f"bf16 {mode}: launches {counts}, want {want_counts[mode]} as "
+              f"in float32; branches {taken}")
+        launches[f"bf16/flagship/{mode}"] = counts
+        worst_box = 0.0
+        for x, d in zip(batches, dets):
+            check(d["boxes"].dtype == torch.float32
+                  and bool(torch.isfinite(d["boxes"]).all()),
+                  f"bf16 {mode}: detections")
+            with torch.inference_mode():
+                o = det.model(preprocess(x, cfg, resize=False))
+                args = (o["cls_logits"], o["bbox_regression"], anchors, cfg,
+                        sizes)
+                ref = postprocess_detections(*args)
+                got = postprocess_detections(*args, **kw)
+            for key in ("valid", "scores", "labels"):
+                check(torch.equal(got[key], ref[key]),
+                      f"bf16 {mode}: {key} != the reference postprocess's")
+            worst_box = max(worst_box, float(
+                (got["boxes"] - ref["boxes"]).abs().max()))
+        check(worst_box <= 1e-4, f"bf16 {mode}: boxes differ by {worst_box}")
+        paths[mode] = {"launches": counts,
+                       "valid_detections": [int(d["valid"].sum())
+                                            for d in dets],
+                       "max_box_diff_vs_reference": worst_box,
+                       **({"branches": taken} if mode == "fused" else {})}
+
+    # -- the kernels on the bf16 path's inputs (float32 after the cast) ---
+    thr = _NEG_INF / 2
+    with torch.inference_mode():
+        cand = head_to_candidates(det, out16)
+    nb, ns = cand["cand_boxes"], cand["cand_sc"]
+    check(nb.dtype == ns.dtype == torch.float32,
+          "the postprocess did not cast to float32")
+    keep = nms_keep_batch(nb, ns, cfg.nms_thresh, thr)
+    p_keep = nms_keep_batch_plain(nb, ns, cfg.nms_thresh, thr)
+    final_idx = torch.sort(ns.reshape(b, -1), dim=-1, descending=True,
+                           stable=True)[1][:, :cfg.detections_per_img]
+    g_cases = {"candidate": (cand["boxes"].contiguous(), cand["top_idx"]),
+               "final": (nb.reshape(b, -1, 4).contiguous(),
+                         final_idx.to(torch.int32).contiguous())}
+    g_out = {n: (gather_rows_batch(t, i), gather_rows_batch_plain(t, i))
+             for n, (t, i) in g_cases.items()}
+    rows = cand["fg"].reshape(-1, anchors.shape[0])
+    k_sc, k_idx = topk_sparse(rows, _TOPK_K, cfg.score_thresh, _TOPK_SLOTS)
+    p_sc, p_idx = topk_sparse_plain(rows, _TOPK_K, cfg.score_thresh)
+    torch.cuda.synchronize()
+    record_err(("nms_keep_batch", "nms_keep_batch/bf16"), keep, p_keep)
+    check(torch.equal(keep, p_keep), "bf16 path: K1 != plain")
+    for n, (got, want) in g_out.items():
+        record_err(("gather_rows_batch", "gather_rows_batch/bf16"), got, want)
+        check(torch.equal(got, want), f"bf16 path: K2 != plain ({n})")
+    record_err(("topk_sparse", "topk_sparse/bf16"), k_sc, p_sc)
+    check(torch.equal(k_sc, p_sc) and torch.equal(k_idx, p_idx),
+          "bf16 path: K3 != plain")
+
+    # -- the card's bf16 heads against the CPU's and the card's float32 ---
+    cpu = trained_detector("cpu", dtype=bf16)
+    with torch.inference_mode():
+        ref = cpu.model(preprocess(batches[0][:2].cpu(), cpu.config,
+                                   resize=False))
+    vs_cpu = {k: bf16_ulps(out16[k][:2], ref[k]) for k in ref}
+    vs_fp32 = {k: bf16_ulps(out16[k], out32[k]) for k in ref}
+    check(all(e <= _BF16_HEAD_ULPS_CPU for e in vs_cpu.values())
+          and all(e <= _BF16_HEAD_ULPS_FP32 for e in vs_fp32.values()),
+          f"bf16 heads: {vs_cpu} ulps from the CPU's (limit "
+          f"{_BF16_HEAD_ULPS_CPU}), {vs_fp32} from float32 (limit "
+          f"{_BF16_HEAD_ULPS_FP32})")
+    del cpu, ref
+
+    # -- time: both dtypes, each mode ---------------------------------------
+    e2e = {}
+    for bs, iters in _BF16_E2E:
+        x = torch.from_numpy(shapes_images(np.random.default_rng(bs),
+                                           bs)[0]).cuda()
+        sz = torch.tensor([[480, 640]] * bs, dtype=torch.int32,
+                          device="cuda")
+        with torch.inference_mode():
+            fwd = {name: cuda_ms(lambda m=m: m.model(preprocess(
+                x, cfg, resize=False)), 5)
+                for name, m in (("fp32", trained), ("bf16", det))}
+            o = det.model(preprocess(x, cfg, resize=False))
+        for mode, kw in _BF16_MODES.items():
+            step = make_predict_step(det, **kw)
+            for _ in range(2):
+                step(det.model, x, sz)
+            torch.cuda.synchronize()
+            per_batch = []
+            for _ in range(iters):
+                t0 = time.perf_counter()
+                step(det.model, x, sz)
+                torch.cuda.synchronize()
+                per_batch.append((time.perf_counter() - t0) * 1e3)
+            q1, med, q3 = np.percentile(per_batch, [25, 50, 75])
+            with torch.inference_mode():
+                post_ms = cuda_ms(lambda: postprocess_detections(
+                    o["cls_logits"], o["bbox_regression"], anchors, cfg, sz,
+                    **kw), 5)
+            e2e[f"{mode}_b{bs}"] = {
+                "img_per_s": bs / med * 1e3, "ms_per_batch_median": med,
+                "ms_per_batch_q1_q3": [q1, q3], "n": iters,
+                "forward_ms": fwd["bf16"], "forward_ms_fp32": fwd["fp32"],
+                "postprocess_ms": post_ms}
+        if bs == 128:
+            trace = trace_calls(lambda: make_predict_step(det)(
+                det.model, x, sz))
+    emit({"phase": "bf16_serving", "weights": "trained npz, bf16 compute",
+          "conv_dtypes_seen": [str(t) for t in seen[0]],
+          "head_dtypes": {k: str(v.dtype) for k, v in out16.items()},
+          "paths": paths,
+          "kernels_vs_plain_on_bf16_inputs": "bit-equal (K1 K = 300, K2 "
+                                             "candidate and final, K3)",
+          "head_ulps_vs_cpu_bf16": vs_cpu,
+          "head_ulps_vs_card_fp32": vs_fp32,
+          "head_limits_ulps": {"cpu": _BF16_HEAD_ULPS_CPU,
+                               "fp32": _BF16_HEAD_ULPS_FP32},
+          "e2e": e2e,
+          "trace_reference_b128": {
+              "wall_ms": trace["wall_ms"],
+              "device_busy_ms": trace["device_busy_ms"],
+              "device_idle_share": trace["device_idle_share"],
+              "top_kernels_ms": trace["top_kernels_ms"]},
+          "seconds": time.perf_counter() - t0_phase})
+    return launches
+
+
+def bf16_training():
+    """The flagship's bf16 train step from the trained npz: closed-loop
+    ms per step, peak memory and split at b32 and b128, and a trace at
+    b128; the loss terms of one step at B = 4 on the card and on the CPU
+    (bf16 both); then remat at b128: ms per step and peak memory with and
+    without it, and under cuDNN's deterministic algorithms two steps with
+    it bit-equal to two without (metrics, every parameter and BN
+    statistic), the statistics moved by the steps."""
+    import torch
+
+    from demonet_tpu_torch.engine.state import (
+        create_train_state,
+        make_optimizer,
+    )
+    from demonet_tpu_torch.engine.train import make_train_step
+
+    t0_phase = time.perf_counter()
+    bf16 = torch.bfloat16
+    timing = {}
+    for bs, iters in ((32, 10), (128, 6)):
+        det = trained_detector("cuda", dtype=bf16)
+        r = step_timing(det, train_batch(1000 + bs, bs, "cuda"), iters)
+        if bs == 128:
+            b128 = train_batch(1128, 128, "cuda")
+            tr = trace_calls(lambda: r["step"](r["state"], b128), 2)
+        timing[f"b{bs}"] = {k: v for k, v in r.items()
+                            if k not in ("step", "state")}
+        del det, r
+    terms = {}
+    for where in ("cuda", "cpu"):
+        d = trained_detector(where, dtype=bf16)
+        st = create_train_state(d, make_optimizer(
+            _TRAIN_LR, _TRAIN_MOMENTUM, _TRAIN_WD))
+        _, m = make_train_step(d)(st, train_batch(2, 4, where))
+        terms[where] = {k: float(v) for k, v in m.items()}
+    rel = {k: abs(terms["cuda"][k] - terms["cpu"][k]) / abs(terms["cpu"][k])
+           for k in terms["cpu"]}
+    check(max(rel.values()) <= _BF16_LOSS_RTOL,
+          f"bf16 loss terms, card against CPU at B = 4: {terms}")
+
+    # -- remat at b128 -------------------------------------------------------
+    remat_timing = {}
+    for remat in (False, True):
+        det = trained_detector("cuda", dtype=bf16)
+        r = step_timing(det, train_batch(1128, 128, "cuda"), 5, remat=remat)
+        remat_timing["remat" if remat else "plain"] = {
+            k: v for k, v in r.items() if k not in ("step", "state")}
+        del det, r
+    runs = {}
+    batch = train_batch(7128, 128, "cuda")
+    for remat in (False, True):
+        det = trained_detector("cuda", dtype=bf16)
+        before = {n: b.clone() for n, b in det.model.named_buffers()
+                  if "running" in n}
+        state = create_train_state(det, make_optimizer(
+            _TRAIN_LR, _TRAIN_MOMENTUM, _TRAIN_WD))
+        step = make_train_step(det, remat=remat)
+        metrics = []
+        with cudnn_deterministic():
+            for _ in range(2):
+                state, m = step(state, batch)
+                metrics.append({k: v.clone() for k, v in m.items()})
+        torch.cuda.synchronize()
+        runs[remat] = {"metrics": metrics, "before": before,
+                       "state": {n: v.clone() for n, v in
+                                 det.model.state_dict().items()}}
+        del det, state, step
+    plain, rem = runs[False], runs[True]
+    metrics_equal = all(torch.equal(a[k], b[k]) for a, b in
+                        zip(plain["metrics"], rem["metrics"]) for k in a)
+    differ = [n for n, v in rem["state"].items()
+              if not torch.equal(v, plain["state"][n])]
+    moved = all(not torch.equal(rem["state"][n], v)
+                for n, v in rem["before"].items())
+    check(metrics_equal and not differ and moved,
+          f"remat at b128: metrics equal {metrics_equal}, entries that "
+          f"differ {differ[:5]} ({len(differ)}), statistics moved {moved}")
+    emit({"phase": "bf16_train", "weights": "trained npz, bf16 compute",
+          "lr": _TRAIN_LR, "timing": timing,
+          "trace_b128": {"wall_ms": tr["wall_ms"],
+                         "device_busy_ms": tr["device_busy_ms"],
+                         "device_idle_share": tr["device_idle_share"],
+                         "top_kernels_ms": tr["top_kernels_ms"]},
+          "loss_card_b4": terms["cuda"], "loss_cpu_b4": terms["cpu"],
+          "loss_rel_err": rel, "loss_rtol": _BF16_LOSS_RTOL,
+          "remat_b128": remat_timing,
+          "remat_vs_plain_2_steps": {
+              "cudnn_deterministic": True, "metrics_equal": metrics_equal,
+              "state_entries_equal": len(rem["state"]) - len(differ),
+              "state_entries": len(rem["state"]),
+              "running_statistics_moved": moved,
+              "losses": [{k: float(v) for k, v in m.items()}
+                         for m in rem["metrics"]]},
+          "seconds": time.perf_counter() - t0_phase})
+    return timing
+
+
+def bf16_families(reset_counts, read_counts):
+    """The four other families in bf16, each from family_detectors' seeded
+    (calibrated) weights with its class head scaled, switched to bf16
+    compute: one counted request of 32 per mode (K1, K2, K3 in its launch
+    by A), detections equal to the reference postprocess's on the same
+    bf16 head outputs; forward ms in float32 and bf16 and closed-loop
+    img/s at b32 and b128 per mode; VGG's top device kernels in a bf16
+    forward; one train step each (bf16, its family's batch and rate):
+    ms, peak memory, a finite loss. Returns the counts by path."""
+    import numpy as np
+    import torch
+
+    from demonet_tpu_torch.engine.evaluate import make_predict_step
+    from demonet_tpu_torch.models.builders import get_model
+    from demonet_tpu_torch.models.detection import (
+        postprocess_detections,
+        preprocess,
+    )
+    from demonet_tpu_torch.models.layers import set_compute_dtype
+    from demonet_tpu_torch.ops.topk import MAX_ROW
+
+    bf16 = torch.bfloat16
+    launches = {}
+    for fi, name in enumerate(_FAMILIES):
+        t0_phase = time.perf_counter()
+        det, cpu = family_detectors(name)
+        del cpu
+        peak_class_head(det)
+        cfg, size = det.config, det.config.size[0]
+        anchors = torch.as_tensor(det.anchors, device="cuda")
+        long_rows = anchors.shape[0] > MAX_ROW
+        rng = np.random.default_rng(300 + fi)
+        x = torch.from_numpy(shapes_images(rng, _FAMILY_BATCH, size)[0]).cuda()
+        sizes = torch.tensor([[480, 640]] * _FAMILY_BATCH, dtype=torch.int32,
+                             device="cuda")
+        set_compute_dtype(det.model, bf16)
+        paths = {}
+        for mode, kw in _FAMILY_MODES.items():
+            step = make_predict_step(det, **kw)
+            step(det.model, x, sizes)
+            torch.cuda.synchronize()
+            reset_counts()
+            d = step(det.model, x, sizes)
+            torch.cuda.synchronize()
+            counts = read_counts()
+            sparse = mode == "sparse_topk"
+            want = {"nms_keep_batch": 1, "gather_rows_batch": 2,
+                    "topk_sparse": 1 if sparse else 0,
+                    "fused_inverted_residual": 0,
+                    "topk_sparse_long": 1 if sparse and long_rows else 0}
+            check(counts == want, f"bf16 {name} {mode}: launches {counts}, "
+                  f"want {want}")
+            launches[f"bf16/{name}/{mode}"] = counts
+            with torch.inference_mode():
+                o = det.model(preprocess(x, cfg, resize=False))
+                args = (o["cls_logits"], o["bbox_regression"], anchors, cfg,
+                        sizes)
+                ref = postprocess_detections(*args)
+                got = postprocess_detections(*args, **kw)
+            check(o["cls_logits"].dtype == bf16
+                  and all(torch.equal(got[k], ref[k]) for k in ref),
+                  f"bf16 {name} {mode}: heads {o['cls_logits'].dtype}, or "
+                  "detections != the reference postprocess's")
+            paths[mode] = {"launches": counts,
+                           "valid_detections": int(d["valid"].sum())}
+        e2e, top = {}, None
+        for bs, iters in _BF16_FAMILY_E2E:
+            xb = torch.from_numpy(shapes_images(np.random.default_rng(bs),
+                                                bs, size)[0]).cuda()
+            sz = torch.tensor([[480, 640]] * bs, dtype=torch.int32,
+                              device="cuda")
+            fwd = {}
+            for dt, key in ((torch.float32, "fp32"), (bf16, "bf16")):
+                set_compute_dtype(det.model, dt)
+                with torch.inference_mode():
+                    fwd[key] = cuda_ms(lambda: det.model(preprocess(
+                        xb, cfg, resize=False)), 2, 1)
+            if "vgg" in name and bs == 32:
+                with torch.inference_mode():
+                    top = trace_calls(lambda: det.model(preprocess(
+                        xb, cfg, resize=False)), 2)["top_kernels_ms"][:5]
+            for mode, kw in _FAMILY_MODES.items():
+                step = make_predict_step(det, **kw)
+                step(det.model, xb, sz)
+                torch.cuda.synchronize()
+                per_batch = []
+                for _ in range(iters):
+                    t0 = time.perf_counter()
+                    step(det.model, xb, sz)
+                    torch.cuda.synchronize()
+                    per_batch.append((time.perf_counter() - t0) * 1e3)
+                med = float(np.median(per_batch))
+                e2e[f"{mode}_b{bs}"] = {"img_per_s": bs / med * 1e3,
+                                        "ms_per_batch_median": med,
+                                        "n": iters}
+            e2e[f"forward_ms_b{bs}"] = fwd
+            del xb
+        del det
+        torch.cuda.empty_cache()
+        tdet = get_model(name, seed=0, dtype=bf16)
+        bs = _FAMILY_TRAIN_BATCH[name]
+        r = step_timing(tdet, family_batch(5000, bs, size, "cuda"), 3,
+                        lr=_FAMILY_TRAIN_LR[name])
+        train = {k: v for k, v in r.items() if k not in ("step", "state")}
+        del tdet, r
+        torch.cuda.empty_cache()
+        emit({"phase": "bf16_families", "model": name, "size": [size, size],
+              "weights": "seeded random (family_detectors), bf16 compute",
+              "paths": paths, "e2e": e2e,
+              **({"top_kernels_bf16_forward_b32_ms": top} if top else {}),
+              "train": train, "seconds": time.perf_counter() - t0_phase})
+    return launches
+
+
+def bf16_cli():
+    """The train CLI with --bf16 from the trained npz on 64 synthetic
+    frames at b32: an epoch with a checkpoint and its evaluation, then
+    --test-only --resume of that checkpoint with --bf16 (the same COCO
+    summary) and without it (the float32 checkpoint in a float32 model:
+    a finite summary); the printing goes to cli_synthetic.log."""
+    import tempfile
+
+    import numpy as np
+
+    from demonet_tpu_torch import train as cli
+
+    t0_phase = time.perf_counter()
+
+    def run(*argv):
+        args = cli.get_args_parser().parse_args([*_CLI_ARGS, *argv])
+        with cudnn_deterministic(), open(_CLI_LOG, "a") as log, \
+                contextlib.redirect_stdout(log):
+            print(f"== {' '.join(argv)}", flush=True)
+            t0 = time.perf_counter()
+            ev = cli.main(args)
+        check(ev is not None and bool(np.isfinite(ev.stats).all()),
+              f"CLI {argv}: no finite COCO summary")
+        return [float(v) for v in ev.stats], time.perf_counter() - t0
+
+    with tempfile.TemporaryDirectory(dir=_HERE) as tmp:
+        out = os.path.join(tmp, "bf16")
+        trained, t_train = run("--bf16", "--epochs", "1", "--output-dir",
+                               out)
+        ckpt = os.path.join(out, "checkpoint_0")
+        resumed16, t16 = run("--bf16", "--test-only", "--resume", ckpt)
+        resumed32, t32 = run("--test-only", "--resume", ckpt)
+    check(resumed16 == trained,
+          f"--bf16 --test-only --resume: {resumed16} != {trained}")
+    emit({"phase": "bf16_cli", "frames": _CLI_FRAMES, "batch": _CLI_BATCH,
+          "trained_bf16_summary": trained,
+          "resumed_bf16_summary": resumed16,
+          "resumed_fp32_summary": resumed32,
+          "seconds_train_and_eval": t_train,
+          "seconds_eval": {"bf16": t16, "fp32": t32},
+          "seconds": time.perf_counter() - t0_phase})
 
 
 def main():
@@ -3370,8 +4022,8 @@ def main():
         "launches": total_launches("topk_sparse_long"),
         "launches_by_path": by_path("topk_sparse_long"),
         "launches_from": "the main-path runs: the VGG families' sparse "
-                         "top-k paths; kernel_topk_long's checks launch it "
-                         "apart",
+                         "top-k paths, float32 and bf16; kernel_topk_long's "
+                         "checks launch it apart",
         "max_abs_err": _MAX_ERR["topk_sparse_long"],
         "family_rows": fam["kernels"]["topk_sparse_long"]})
 
@@ -3387,16 +4039,29 @@ def main():
     cli_synthetic(reset_counts, read_counts)
     entry = entry_points(trained, batches, sizes, reset_counts, read_counts)
     launches_by_path.update(entry["launches_by_path"])
+    # -- bf16 compute and remat: serving, training, the families, the CLI
+    launches_by_path.update(bf16_serving(trained, batches, sizes,
+                                         reset_counts, read_counts))
+    reset_counts()
+    bf16_training()
+    check(not any(read_counts().values()),
+          f"the bf16 train steps launched kernels: {read_counts()}")
+    launches_by_path.update(bf16_families(reset_counts, read_counts))
+    bf16_cli()
     for r in rows:
         r["launches"] = total_launches(r["name"])
         r["launches_by_path"] = by_path(r["name"])
+    long_row.update(launches=total_launches("topk_sparse_long"),
+                    launches_by_path=by_path("topk_sparse_long"))
     nms_row_main = next(r for r in rows if r["name"] == "nms_keep_batch")
     nms_row_main["public_api_shapes"] = {
         **entry["public_nms"], "max_abs_err": entry["public_nms_err"],
         "launches": launches_by_path["entry_points/public_nms"][
-            "nms_keep_batch"],
+            "nms_keep_batch"] + launches_by_path[
+            "entry_points/public_nms_long"]["nms_keep_batch"],
         "launches_from": "entry_points: nms_mask, nms and batched_nms, "
-                         "one K1 launch each per case (P = 1, K = N)"}
+                         "one K1 launch each per case (P = 1, K = N), the "
+                         f"long launch's at N = {max(_LONG_NMS_N)}"}
 
     # the shortest kernel the card runs: one float written by a fill,
     # timed as every kernel here is (device_ms)

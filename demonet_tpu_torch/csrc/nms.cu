@@ -21,7 +21,7 @@
 // is set when j > i and IoU(i, j) > threshold; a row is K/64 words of 64
 // bits. The chain then needs only, for each i in order, one bit test and,
 // when i is kept, an OR of its row into the "removed" bitset. Only the
-// valid prefix is visited, and invalid candidates start out removed. Two
+// valid prefix is visited, and invalid candidates start out removed. Three
 // launch shapes, chosen by the wrapper by K:
 //   - block (K <= 512; the reference postprocess: P = B * 90 problems of
 //     K = 300): one block of 4 warps per problem, the valid prefix's boxes
@@ -54,6 +54,20 @@
 //     All 4 warps stage the next tile's rows into shared memory with
 //     cp.async (double-buffered) while warp 0 sweeps the current one, so
 //     the chain does not wait on device memory.
+//   - long (K > 8,192; the public NMS of one problem of N boxes): the
+//     tiled launch's 128 removed words in registers and its full-width rows
+//     in shared memory (2 x 64 rows x K / 64 words: 256 KB at K = 16,384)
+//     no longer fit. The mask is built by the same nms_mask_kernel (K^2 / 8
+//     bytes of scratch: 50 MB at K = 20,000). nms_sweep_long_kernel then
+//     keeps the removed bitset, K / 64 words, in dynamic shared memory
+//     (2.5 KB at 20,000) and walks the tiles in order, one block a
+//     problem: it stages column piece w of tile w's 64 rows (the diagonal
+//     words) in shared memory, warp 0 walks the chain through the tile on
+//     them, and then the block ORs the kept rows' later column pieces into
+//     the bitset, read from device memory, a thread a (row, word) with
+//     shared atomics, so the loads of a tile are all in flight at once.
+//     Three barriers a tile; a simple first version for a path that no
+//     model runs.
 // A word is one warp's work: lane l tests columns l and l + 32 and two
 // ballots make the word, so no lane walks a loop of its own.
 // A pair with no intersection is decided without the division: inter is
@@ -85,6 +99,7 @@ constexpr int kBlockMaxK = 512;      // block path: 8 mask words
 constexpr int kMaskThreads = 128;    // tiled path's mask
 constexpr int kSweepThreads = 128;   // tiled path's sweep
 constexpr int kMaxK = 8192;          // tiled path: 128 words, 4 per lane
+constexpr int kLongThreads = 512;    // long path's sweep
 
 // IoU(a, b) > thr, the reference's arithmetic in the reference's order.
 __device__ __forceinline__ bool suppresses(float4 a, float area_a, float4 b,
@@ -236,7 +251,8 @@ nms_block_kernel(const float4* __restrict__ boxes,
 
 // ---- tiled path -----------------------------------------------------------
 
-// mask: (P, K, words) u64. Block (p, g) of a (P, groups) grid walks the
+// mask: (P, K, words) u64; 2 * words * 4 bytes of dynamic shared memory.
+// Block (p, g) of a (P, groups) grid walks the
 // tiles (64 rows, 64 columns on or above the diagonal) inside problem p's
 // valid prefix, g, g + groups, ...: no block is spent past the prefix.
 // A warp per row, two columns a lane; rows that are not valid are skipped
@@ -247,7 +263,7 @@ nms_mask_kernel(const float4* __restrict__ boxes,
                 int k, int words, float iou_thr, float score_thr) {
   __shared__ float4 s_row[kTile], s_col[kTile];
   __shared__ float s_row_area[kTile], s_col_area[kTile];
-  __shared__ unsigned s_valid[kMaxK / 32];
+  extern __shared__ unsigned s_valid[];  // [2 * words]: any K
 
   constexpr int kWarps = kMaskThreads / 32;
   const int64_t base = static_cast<int64_t>(blockIdx.x) * k;
@@ -403,16 +419,90 @@ nms_sweep_kernel(const float* __restrict__ scores,
   }
 }
 
+// The long path's sweep (K > 8,192), one block a problem. Dynamic shared
+// memory: the removed bitset (words u64), the diagonal words of the
+// current tile's rows (64 u64) and the valid bits (2 * words u32).
+__global__ void __launch_bounds__(kLongThreads)
+nms_sweep_long_kernel(const float* __restrict__ scores,
+                      const u64* __restrict__ mask, bool* __restrict__ keep,
+                      int k, int words, float score_thr) {
+  extern __shared__ u64 s_dyn[];
+  u64* s_removed = s_dyn;
+  u64* s_diag = s_dyn + words;
+  unsigned* s_valid = reinterpret_cast<unsigned*>(s_diag + kTile);
+  __shared__ int s_kept[kTile];
+  __shared__ int s_n_kept;
+
+  const int64_t base = static_cast<int64_t>(blockIdx.x) * k;
+  const int tid = threadIdx.x;
+  const int bound = valid_prefix(scores + base, k, words, score_thr, s_valid);
+  const int tiles = (bound + kTile - 1) / kTile;
+  for (int l = tid; l < words; l += kLongThreads) {
+    s_removed[l] = ~valid_word(s_valid, l);
+  }
+  const u64* pm = mask + base * words;
+  for (int w = 0; w < tiles; ++w) {
+    const int lim = min(kTile, bound - w * kTile);
+    // column piece w of the tile's rows; rows that are not valid were
+    // never written, and the chain never reads them
+    if (tid < lim) {
+      s_diag[tid] = pm[static_cast<int64_t>(w * kTile + tid) * words + w];
+    }
+    __syncthreads();  // also orders the last tile's ORs before the chain
+    // 1. the chain through the tile: warp 0, every lane alike
+    if (tid < 32) {
+      const u64 live = low_bits(lim);
+      u64 cur = s_removed[w];
+      u64 todo = ~cur & live;
+      int n = 0;
+      while (todo) {
+        const int b = __ffsll(static_cast<long long>(todo)) - 1;
+        if (tid == 0) s_kept[n] = w * kTile + b;
+        ++n;
+        cur |= s_diag[b];
+        todo = ~cur & live & bits_above(b);
+      }
+      if (tid == 0) {
+        s_removed[w] = cur;
+        s_n_kept = n;
+      }
+    }
+    __syncthreads();
+    // 2. the kept rows' later column pieces: a thread a (row, word),
+    // neighbouring threads on neighbouring words of a row, OR-ed into the
+    // bitset with shared atomics
+    const int later = tiles - w - 1;
+    const int items = s_n_kept * later;
+#pragma unroll 4
+    for (int it = tid; it < items; it += kLongThreads) {
+      const int l = w + 1 + it % later;
+      const u64 word =
+          pm[static_cast<int64_t>(s_kept[it / later]) * words + l];
+      if (word) atomicOr(&s_removed[l], word);
+    }
+    __syncthreads();  // s_kept and s_diag are rewritten by the next tile
+  }
+  __syncthreads();
+  for (int j = tid; j < k; j += kLongThreads) {
+    keep[base + j] = !((s_removed[j / kTile] >> (j % kTile)) & 1ull);
+  }
+}
+
+// Dynamic shared memory above 48 KB must be asked for.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+}
+
 template <int kWordsPerLane>
 int launch_sweep(const float* scores, const u64* mask, bool* keep, int p,
                  int k, int words, float score_thr, cudaStream_t stream) {
   const size_t smem = static_cast<size_t>(2) * kTile * words * sizeof(u64);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        nms_sweep_kernel<kWordsPerLane>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
+  const cudaError_t e = allow_smem(nms_sweep_kernel<kWordsPerLane>, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
   nms_sweep_kernel<kWordsPerLane><<<p, kSweepThreads, smem, stream>>>(
       scores, mask, keep, k, words, score_thr);
   return static_cast<int>(cudaGetLastError());
@@ -421,10 +511,10 @@ int launch_sweep(const float* scores, const u64* mask, bool* keep, int p,
 }  // namespace
 
 // boxes: (p, k, 4) f32, 16-byte aligned; scores: (p, k) f32; keep: (p, k)
-// bool; scratch: (p, k, ceil(k / 64)) u64 for launch 2, unused for launch 1.
-// All contiguous on the current device; stream is a cudaStream_t. launch:
-// 1 = block (k <= 512), 2 = tiled (k <= 8,192). Returns cudaGetLastError()
-// after the launches (0 on success).
+// bool; scratch: (p, k, ceil(k / 64)) u64 for launches 2 and 3, unused for
+// launch 1. All contiguous on the current device; stream is a cudaStream_t.
+// launch: 1 = block (k <= 512), 2 = tiled (k <= 8,192), 3 = long (any k).
+// Returns cudaGetLastError() after the launches (0 on success).
 extern "C" int nms_keep_batch(const void* boxes, const void* scores,
                               void* keep, void* scratch, int p, int k,
                               float iou_threshold, float score_threshold,
@@ -441,7 +531,8 @@ extern "C" int nms_keep_batch(const void* boxes, const void* scores,
                                                  score_threshold);
     return static_cast<int>(cudaGetLastError());
   }
-  if (launch != 2 || k > kMaxK || scratch == nullptr) {
+  if ((launch != 2 && launch != 3) || (launch == 2 && k > kMaxK) ||
+      scratch == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   u64* mask = static_cast<u64*>(scratch);
@@ -456,10 +547,22 @@ extern "C" int nms_keep_batch(const void* boxes, const void* scores,
   int groups = (sms * 8 + p - 1) / p;
   if (groups > pairs) groups = pairs;
   if (groups > 65535) groups = 65535;
-  nms_mask_kernel<<<dim3(p, groups), kMaskThreads, 0, s>>>(
+  const size_t valid_smem = static_cast<size_t>(2) * words * sizeof(unsigned);
+  e = allow_smem(nms_mask_kernel, valid_smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  nms_mask_kernel<<<dim3(p, groups), kMaskThreads, valid_smem, s>>>(
       bx, sc, mask, k, words, iou_threshold, score_threshold);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
+  if (launch == 3) {
+    const size_t smem = static_cast<size_t>(words + kTile) * sizeof(u64) +
+                        valid_smem;
+    e = allow_smem(nms_sweep_long_kernel, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    nms_sweep_long_kernel<<<p, kLongThreads, smem, s>>>(
+        sc, mask, kp, k, words, score_threshold);
+    return static_cast<int>(cudaGetLastError());
+  }
   return words <= 32
              ? launch_sweep<1>(sc, mask, kp, p, k, words, score_threshold, s)
              : launch_sweep<4>(sc, mask, kp, p, k, words, score_threshold, s);

@@ -39,7 +39,8 @@ def make_predict_step(
     [0, 1], on the model's device. The anchors are put on that device
     once, here. The model runs in eval mode, whatever mode it was left in
     (a train step leaves it in train mode), as the JAX package's predict
-    passes train=False.
+    passes train=False. A bf16 model's head outputs are cast to float32
+    before the postprocess, so its detections are float32 too.
     """
     anchors = torch.as_tensor(detector.anchors, device=detector.device)
     config = detector.config

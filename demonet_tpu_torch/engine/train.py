@@ -6,18 +6,23 @@ update at the step's learning rate (computed on the host from the host
 step count) and the BN statistics' update, which the train-mode forward
 makes. Nothing in it waits for the device: the metrics come back as
 device tensors, and the epoch loop reads them every `print_freq` steps.
+A bfloat16 model (the builders' `dtype`) trains in the same step: its
+float32 parameters get float32 gradients through the casts in its convs.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 import sys
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from demonet_tpu_torch.engine.state import TrainState
 from demonet_tpu_torch.models.detection import Detector, to_float
+from demonet_tpu_torch.models.layers import hold_running_stats
 from demonet_tpu_torch.models.losses import multibox_loss
 from demonet_tpu_torch.utils.logging import MetricLogger, SmoothedValue
 
@@ -28,6 +33,12 @@ _KEYS = ("images", "gt_boxes", "gt_labels", "gt_valid")
 
 def _unported(what: str, where: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet ({where})")
+
+
+def _remat_contexts():
+    """The forward runs as it is; its recompute in the backward pass holds
+    the BN running statistics back."""
+    return contextlib.nullcontext(), hold_running_stats()
 
 
 def make_train_step(
@@ -55,16 +66,17 @@ def make_train_step(
     each of 'forward', 'loss', 'backward' and 'optimizer' (of the last
     sub-step); it lets a caller put CUDA events between them.
 
-    `mesh` (the data-parallel mesh) and `remat` (recomputing activations
-    in the backward pass) are not ported: a recomputed forward would
-    update the BN statistics a second time, which the JAX package's
-    rematerialisation never does. `donate` has no meaning here: the state
-    is updated in place, so nothing is copied for it to save.
+    `remat` recomputes the activations in the backward pass instead of
+    keeping them, as the JAX package's `jax.checkpoint` over the whole
+    train-mode apply: `torch.utils.checkpoint` over the whole model, its
+    recompute inside `layers.hold_running_stats()`, so that the BN
+    statistics move once a step. It takes steps_per_call > 1 too.
+    `mesh` (the data-parallel mesh) is not ported. `donate` has no meaning
+    here: the state is updated in place, so nothing is copied for it to
+    save.
     """
     if mesh is not None:
         raise _unported("make_train_step(mesh=...)", "ROADMAP Queue 1, item 10")
-    if remat:
-        raise _unported("make_train_step(remat=True)", "ROADMAP Queue 1")
     del donate
     device = detector.device
     config = detector.config
@@ -87,7 +99,11 @@ def make_train_step(
         images = b["images"]
         if normalize_in_step:
             images = (to_float(images) - mean) / std
-        outputs = model(images)
+        if remat:
+            outputs = checkpoint(model, images, use_reentrant=False,
+                                 context_fn=_remat_contexts)
+        else:
+            outputs = model(images)
         _mark(on_phase, "forward")
         losses = multibox_loss(
             outputs["cls_logits"], outputs["bbox_regression"], anchors,

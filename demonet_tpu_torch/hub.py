@@ -42,7 +42,9 @@ def load(name: str, weights: Optional[str] = None, seed: int = 0,
     anything else raises ValueError. `pretrained=True` resolves the
     published checkpoint from the local weights cache
     (`utils.pretrained`). Without weights the model keeps its seeded
-    random ones. `device`: `cuda` unless the caller names another; with
+    random ones. `kwargs` go to the builder: `dtype=torch.bfloat16` for
+    bf16 compute (the weights stay float32, so any of these sources
+    loads), `num_classes`, a detector's config fields. `device`: `cuda` unless the caller names another; with
     no GPU and no device asked for, it raises.
     """
     if pretrained and not weights:

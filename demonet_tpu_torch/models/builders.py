@@ -17,8 +17,11 @@ classifier builder the module itself, each in eval mode on `device`
 (`cuda` unless the caller names another), its weights drawn from a
 `torch.Generator` seeded with `seed` by the JAX package's initializers;
 `utils.weights.load_jax_variables` replaces them with the JAX package's.
-The JAX builders' `dtype` (bf16) waits for ROADMAP item 7b; `lane_pack`
-and `stem_s2d` are TPU layouts, not ported.
+Each builder takes the JAX builders' `dtype`, the compute dtype
+(`torch.float32` by default, or `torch.bfloat16`): the parameters and BN
+statistics stay float32 and the convs and linears compute in it
+(`layers.set_compute_dtype`). `lane_pack` and `stem_s2d` are TPU
+layouts, not ported.
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ from demonet_tpu_torch.models.features import (
     SSDLiteMobileNetExtractor,
 )
 from demonet_tpu_torch.models.heads import Pelee1x1Head, SSDHead, SSDLiteHead
+from demonet_tpu_torch.models.layers import set_compute_dtype
 from demonet_tpu_torch.models.mobilenetv2 import MobileNetV2
 from demonet_tpu_torch.models.mobilenetv3 import MobileNetV3
 from demonet_tpu_torch.models.peleenet import PeleeExtractor, PeleeNet
@@ -162,12 +166,14 @@ def _config(size, num_classes, defaults, overrides) -> SSDConfig:
 
 
 def _detector(extractor: nn.Module, head: nn.Module, kind_of: KindOf,
-              seed: int, device: torch.device, config: SSDConfig,
+              seed: int, device: torch.device, dtype: torch.dtype,
+              config: SSDConfig,
               make_boxes: Callable[[List[Tuple[int, int]]], Any]
               ) -> Detector:
     grids = feature_grid_sizes(extractor, config.size)
     model = SSD(extractor, head)
     _init_weights(model, torch.Generator().manual_seed(seed), kind_of)
+    set_compute_dtype(model, dtype)
     return Detector(model.to(device).eval(), config, make_boxes(grids))
 
 
@@ -177,6 +183,7 @@ def ssdlite320_mobilenet_v3_large(
     reduced_tail: bool = True,
     device: Device = None,
     seed: int = 0,
+    dtype: torch.dtype = torch.float32,
     **config_overrides: Any,
 ) -> Detector:
     """SSDLite320 + MobileNetV3-Large, the flagship model."""
@@ -191,14 +198,16 @@ def ssdlite320_mobilenet_v3_large(
         image_mean=(0.5, 0.5, 0.5), image_std=(0.5, 0.5, 0.5),
         score_thresh=0.001, nms_thresh=0.55,
         detections_per_img=300, topk_candidates=300), config_overrides)
-    return _detector(extractor, head, _ssdlite_init, seed, device, config,
+    return _detector(extractor, head, _ssdlite_init, seed, device, dtype,
+                     config,
                      lambda grids: anchor_lib.default_boxes(
                          grids, size, aspect_ratios, min_ratio=0.2,
                          max_ratio=0.95))
 
 
 def _ssd_vgg16(num_classes: int, size: Tuple[int, int], highres: bool,
-               device: Device, seed: int, config_overrides) -> Detector:
+               device: Device, seed: int, dtype: torch.dtype,
+               config_overrides) -> Detector:
     device = resolve_device(device)
     if highres:    # SSD512, the SSD paper's 7 maps
         aspect_ratios = [[2], [2, 3], [2, 3], [2, 3], [2, 3], [2], [2]]
@@ -215,24 +224,26 @@ def _ssd_vgg16(num_classes: int, size: Tuple[int, int], highres: bool,
     config = _config(size, num_classes, dict(
         image_mean=(0.48235, 0.45882, 0.40784),
         image_std=(1.0 / 255.0, 1.0 / 255.0, 1.0 / 255.0)), config_overrides)
-    return _detector(extractor, head, _vgg_init, seed, device, config,
+    return _detector(extractor, head, _vgg_init, seed, device, dtype, config,
                      lambda grids: anchor_lib.default_boxes(
                          grids, size, aspect_ratios, scales=scales,
                          steps=steps))
 
 
 def ssd300_vgg16(num_classes: int = 91, device: Device = None, seed: int = 0,
+                 dtype: torch.dtype = torch.float32,
                  **config_overrides: Any) -> Detector:
     """The classic SSD300 on VGG16 (300x300, 8,732 anchors)."""
-    return _ssd_vgg16(num_classes, (300, 300), False, device, seed,
+    return _ssd_vgg16(num_classes, (300, 300), False, device, seed, dtype,
                       config_overrides)
 
 
 def ssd512_vgg16(num_classes: int = 91, device: Device = None, seed: int = 0,
+                 dtype: torch.dtype = torch.float32,
                  **config_overrides: Any) -> Detector:
     """SSD512 on VGG16 through the highres extras (512x512, 24,732
     anchors)."""
-    return _ssd_vgg16(num_classes, (512, 512), True, device, seed,
+    return _ssd_vgg16(num_classes, (512, 512), True, device, seed, dtype,
                       config_overrides)
 
 
@@ -242,6 +253,7 @@ def ssd_lite_mobilenet_v2(
     score_thresh: float = 0.5,
     device: Device = None,
     seed: int = 0,
+    dtype: torch.dtype = torch.float32,
     **config_overrides: Any,
 ) -> Detector:
     """The legacy SSDLite + MobileNetV2 VOC model: 6 x [2, 3] ratios,
@@ -257,7 +269,7 @@ def ssd_lite_mobilenet_v2(
         image_mean=(0.5, 0.5, 0.5), image_std=(0.5, 0.5, 0.5),
         score_thresh=score_thresh, nms_thresh=0.45,
         detections_per_img=100, topk_candidates=400), config_overrides)
-    return _detector(extractor, head, _v2_init, seed, device, config,
+    return _detector(extractor, head, _v2_init, seed, device, dtype, config,
                      lambda grids: anchor_lib.default_boxes(
                          grids, size, aspect_ratios, min_ratio=0.2,
                          max_ratio=0.95))
@@ -269,6 +281,7 @@ def pelee304(
     score_thresh: float = 0.5,
     device: Device = None,
     seed: int = 0,
+    dtype: torch.dtype = torch.float32,
     **config_overrides: Any,
 ) -> Detector:
     """Pelee-SSD 304: PeleeNet, 5 maps of 6 anchors each, ratios 5 x
@@ -284,50 +297,56 @@ def pelee304(
         score_thresh=score_thresh, nms_thresh=0.45,
         detections_per_img=100, topk_candidates=400), config_overrides)
     steps = [16, 30, 60, 101, 304] if tuple(size) == (304, 304) else None
-    return _detector(extractor, head, _lecun, seed, device, config,
+    return _detector(extractor, head, _lecun, seed, device, dtype, config,
                      lambda grids: anchor_lib.default_boxes(
                          grids, size, aspect_ratios, min_ratio=0.15,
                          max_ratio=0.9, steps=steps))
 
 
 def _classifier(module: nn.Module, kind_of: KindOf, seed: int,
-                device: torch.device) -> nn.Module:
+                device: torch.device, dtype: torch.dtype) -> nn.Module:
     _init_weights(module, torch.Generator().manual_seed(seed), kind_of)
-    return module.to(device).eval()
+    return set_compute_dtype(module, dtype).to(device).eval()
 
 
 def mobilenet_v2(num_classes: int = 1000, device: Device = None,
-                 seed: int = 0, **kwargs: Any) -> MobileNetV2:
+                 seed: int = 0, dtype: torch.dtype = torch.float32,
+                 **kwargs: Any) -> MobileNetV2:
     """The MobileNetV2 classifier (width_mult, dropout_rate)."""
     device = resolve_device(device)
     return _classifier(MobileNetV2(num_classes=num_classes, **kwargs),
-                       _classifier_init, seed, device)
+                       _classifier_init, seed, device, dtype)
 
 
 def mobilenet_v3_large(num_classes: int = 1000, device: Device = None,
-                       seed: int = 0, **kwargs: Any) -> MobileNetV3:
+                       seed: int = 0, dtype: torch.dtype = torch.float32,
+                       **kwargs: Any) -> MobileNetV3:
     """The MobileNetV3-Large classifier (width_mult, reduced_tail,
     dilated, dropout_rate)."""
     device = resolve_device(device)
     return _classifier(MobileNetV3("mobilenet_v3_large", num_classes,
-                                   **kwargs), _classifier_init, seed, device)
+                                   **kwargs), _classifier_init, seed, device,
+                       dtype)
 
 
 def mobilenet_v3_small(num_classes: int = 1000, device: Device = None,
-                       seed: int = 0, **kwargs: Any) -> MobileNetV3:
+                       seed: int = 0, dtype: torch.dtype = torch.float32,
+                       **kwargs: Any) -> MobileNetV3:
     """The MobileNetV3-Small classifier (as mobilenet_v3_large)."""
     device = resolve_device(device)
     return _classifier(MobileNetV3("mobilenet_v3_small", num_classes,
-                                   **kwargs), _classifier_init, seed, device)
+                                   **kwargs), _classifier_init, seed, device,
+                       dtype)
 
 
 def peleenet_v1(num_classes: int = 1000, device: Device = None,
-                seed: int = 0, **kwargs: Any) -> PeleeNet:
+                seed: int = 0, dtype: torch.dtype = torch.float32,
+                **kwargs: Any) -> PeleeNet:
     """The PeleeNet classifier (growth_rate, block_config,
     num_init_features, bn_size, drop_rate)."""
     device = resolve_device(device)
     return _classifier(PeleeNet(num_classes=num_classes, **kwargs), _lecun,
-                       seed, device)
+                       seed, device, dtype)
 
 
 # the JAX package's nine public names (demonet_tpu/models/builders.py:220-245)

@@ -40,6 +40,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from demonet_tpu_torch.models.layers import compute_dtype
 from demonet_tpu_torch.models.losses import multibox_loss
 from demonet_tpu_torch.ops.boxes import clip_boxes_to_image, decode_boxes
 from demonet_tpu_torch.ops.gather import (
@@ -306,10 +307,14 @@ def _pad_and_rescale(out_boxes: torch.Tensor, out_scores: torch.Tensor,
         valid = F.pad(valid, (0, pad))
 
     if original_sizes is not None:
+        # times the float32 reciprocal of the network size: XLA compiles
+        # the JAX package's division by the constant size so, and the
+        # true quotient differs in the last bit (at 96, 640 / 96)
         h, w = config.size
+        inv = np.float32(1.0) / np.asarray([h, w], np.float32)
         ratio = original_sizes.to(device=out_boxes.device,
-                                  dtype=torch.float32) / torch.tensor(
-            [h, w], dtype=torch.float32, device=out_boxes.device)
+                                  dtype=torch.float32) * torch.from_numpy(
+            inv).to(out_boxes.device)
         scale = torch.stack(
             [ratio[:, 1], ratio[:, 0], ratio[:, 1], ratio[:, 0]], dim=-1)
         out_boxes = out_boxes * scale[:, None, :]
@@ -479,6 +484,9 @@ class Detector:
 
     The module holds its weights: `predict` and `loss` take images (and
     ground truth) only, and each puts the module in the mode it needs.
+    `dtype` is the module's compute dtype (the builders' `dtype`): its
+    head outputs come in it, and the postprocess casts them to float32
+    first, so the kernels always see float32.
     """
 
     model: SSD
@@ -488,6 +496,10 @@ class Detector:
     @property
     def device(self) -> torch.device:
         return next(self.model.parameters()).device
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return compute_dtype(self.model)
 
     def predict(
         self,

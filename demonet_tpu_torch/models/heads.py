@@ -20,7 +20,7 @@ from typing import Callable, Dict, List, Sequence
 import torch
 from torch import nn
 
-from demonet_tpu_torch.models.layers import SeparableConv
+from demonet_tpu_torch.models.layers import Conv2d, SeparableConv
 
 
 def _flatten_levels(outputs: Sequence[torch.Tensor], k: int) -> torch.Tensor:
@@ -59,7 +59,7 @@ class SSDHead(_Head):
     def __init__(self, in_channels: Sequence[int], num_anchors: Sequence[int],
                  num_classes: int):
         super().__init__(in_channels, num_anchors, num_classes,
-                         lambda i, c, o: nn.Conv2d(c, o, 3, padding=1))
+                         lambda i, c, o: Conv2d(c, o, 3, padding=1))
 
 
 class Pelee1x1Head(_Head):
@@ -68,7 +68,7 @@ class Pelee1x1Head(_Head):
     def __init__(self, in_channels: Sequence[int], num_anchors: Sequence[int],
                  num_classes: int):
         super().__init__(in_channels, num_anchors, num_classes,
-                         lambda i, c, o: nn.Conv2d(c, o, 1))
+                         lambda i, c, o: Conv2d(c, o, 1))
 
 
 class SSDLiteHead(_Head):
@@ -84,7 +84,7 @@ class SSDLiteHead(_Head):
 
         def make(i, c, o):
             if last_plain and i == last:
-                return nn.Conv2d(c, o, 1)
+                return Conv2d(c, o, 1)
             return SeparableConv(c, o, bn_momentum, bn_eps)
 
         super().__init__(in_channels, num_anchors, num_classes, make)

@@ -12,13 +12,30 @@ momentum): 1e-3 and 0.03 everywhere on the SSDLite flagship, 1e-5 and 0.1
 on MobileNetV2 and PeleeNet, 1e-3 and 0.01 in the MobileNetV3
 classifier. The activations are written out as the JAX formulas, not
 with F.hardsigmoid/F.hardswish, whose constants and rounding differ.
+
+Compute dtype (the JAX modules' `dtype`, e.g. bfloat16): parameters and
+BN statistics stay float32 whatever it is. `Conv2d` and `Linear` cast
+their input, weight and bias to their `dtype` and give their output in
+it, as the JAX modules' nn.Conv and nn.Dense promote their operands (the
+bias added after the product, in that dtype, as there). `BatchNorm`
+computes its statistics and the normalisation in at least float32 and
+gives the result in its input's dtype, in train and eval mode alike.
+Everything
+between (activations, SE, pools, residual sums, concatenations) runs in
+the dtype its input has, as in JAX. `set_compute_dtype(module, dtype)`
+sets the dtype of every Conv2d and Linear under a module; float32, the
+default, casts nothing, so a module computes in its parameters' dtype
+(float64 after `.double()`). No autocast: its per-op lists differ from
+the JAX model's choices and between the CPU and CUDA.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+import contextlib
+from typing import Callable, Iterator, Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 Act = Optional[Callable[[torch.Tensor], torch.Tensor]]
@@ -52,10 +69,77 @@ def _torch_padding(kernel_size: int, dilation: int = 1) -> int:
     return (kernel_size - 1) // 2 * dilation
 
 
-class BatchNorm(nn.BatchNorm2d):
-    """BatchNorm over NCHW with the JAX package's train-mode rule.
+class Conv2d(nn.Conv2d):
+    """nn.Conv2d computing in `dtype` (the JAX nn.Conv's `dtype`): input
+    and weight cast to it, the product in it, then the bias added in it."""
 
-    Eval mode is nn.BatchNorm2d's own forward. Train mode follows the
+    dtype = torch.float32
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.dtype == torch.float32:
+            return super().forward(x)
+        y = self._conv_forward(x.to(self.dtype), self.weight.to(self.dtype),
+                               None)
+        if self.bias is None:
+            return y
+        return y + self.bias.to(self.dtype)[:, None, None]
+
+
+class Linear(nn.Linear):
+    """nn.Linear computing in `dtype` (the JAX nn.Dense's `dtype`), as
+    Conv2d."""
+
+    dtype = torch.float32
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.dtype == torch.float32:
+            return super().forward(x)
+        y = F.linear(x.to(self.dtype), self.weight.to(self.dtype))
+        return y + self.bias.to(self.dtype)
+
+
+def set_compute_dtype(module: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """Every Conv2d and Linear under `module` computes in `dtype`; the
+    rest follows its input (see the module docstring). Returns module."""
+    for m in module.modules():
+        if isinstance(m, (Conv2d, Linear)):
+            m.dtype = dtype
+    return module
+
+
+def compute_dtype(module: nn.Module) -> torch.dtype:
+    """The dtype the module's convs and linears compute in."""
+    return next((m.dtype for m in module.modules()
+                 if isinstance(m, (Conv2d, Linear))), torch.float32)
+
+
+# Depth of `hold_running_stats` blocks: while above 0, train-mode BN
+# normalises by batch statistics but leaves its running ones alone. A
+# global and not a thread-local, because autograd may recompute a
+# checkpointed forward on its own device thread.
+_HOLD_STATS = [0]
+
+
+@contextlib.contextmanager
+def hold_running_stats() -> Iterator[None]:
+    """Train-mode BatchNorm inside the block does not update its running
+    statistics: the recompute of a rematerialised forward, so that each
+    step updates them once, as the JAX package's `jax.checkpoint` does."""
+    _HOLD_STATS[0] += 1
+    try:
+        yield
+    finally:
+        _HOLD_STATS[0] -= 1
+
+
+class BatchNorm(nn.BatchNorm2d):
+    """BatchNorm over NCHW with the JAX package's rule.
+
+    A float32 (or float64) input in eval mode takes nn.BatchNorm2d's own
+    forward. A low-precision input (bfloat16) is promoted to float32, as
+    the JAX package's BatchNorm promotes it: the statistics (train mode)
+    or the running ones (eval mode), the normalisation, scale and bias in
+    float32, and the result cast back to the input's dtype. Train mode follows the
     BatchNorm of the JAX package's modules (fast variance) instead of
     torch's:
 
@@ -68,7 +152,9 @@ class BatchNorm(nn.BatchNorm2d):
       * running = decay * running + (1 - decay) * batch, decay = 1 -
         momentum, in the JAX package's order of operations.
 
-    `num_batches_tracked` is kept for the state_dict's sake and not counted.
+    Inside `hold_running_stats()` the running statistics stay as they
+    are. `num_batches_tracked` is kept for the state_dict's sake and not
+    counted.
     """
 
     def __init__(self, num_features: int, eps: float = 1e-3,
@@ -76,20 +162,26 @@ class BatchNorm(nn.BatchNorm2d):
         super().__init__(num_features, eps=eps, momentum=momentum)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if not self.training:
+        if not self.training and x.dtype == self.running_mean.dtype:
             return super().forward(x)
-        dims = (0, 2, 3)
-        mean = x.mean(dims)
-        var = ((x * x).mean(dims) - mean * mean).clamp(min=0.0)
-        decay = 1.0 - self.momentum
-        with torch.no_grad():
-            self.running_mean.copy_(decay * self.running_mean
-                                    + (1.0 - decay) * mean)
-            self.running_var.copy_(decay * self.running_var
-                                   + (1.0 - decay) * var)
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        if self.training:
+            dims = (0, 2, 3)
+            mean = xf.mean(dims)
+            var = ((xf * xf).mean(dims) - mean * mean).clamp(min=0.0)
+            if not _HOLD_STATS[0]:
+                decay = 1.0 - self.momentum
+                with torch.no_grad():
+                    self.running_mean.copy_(decay * self.running_mean
+                                            + (1.0 - decay) * mean)
+                    self.running_var.copy_(decay * self.running_var
+                                           + (1.0 - decay) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
         mul = torch.rsqrt(var + self.eps) * self.weight
-        return ((x - mean[:, None, None]) * mul[:, None, None]
-                + self.bias[:, None, None])
+        y = ((xf - mean[:, None, None]) * mul[:, None, None]
+             + self.bias[:, None, None])
+        return y.to(x.dtype)
 
 
 class ConvBNAct(nn.Module):
@@ -104,7 +196,7 @@ class ConvBNAct(nn.Module):
                  act: Act = relu6, bn_eps: float = 1e-3,
                  bn_momentum: float = 0.01):
         super().__init__()
-        self.conv = nn.Conv2d(
+        self.conv = Conv2d(
             in_channels, features, kernel_size, stride=stride,
             padding=_torch_padding(kernel_size, dilation), dilation=dilation,
             groups=groups, bias=False)
@@ -121,8 +213,8 @@ class SqueezeExcitation(nn.Module):
 
     def __init__(self, in_channels: int, squeeze_channels: int):
         super().__init__()
-        self.fc1 = nn.Conv2d(in_channels, squeeze_channels, 1)
-        self.fc2 = nn.Conv2d(squeeze_channels, in_channels, 1)
+        self.fc1 = Conv2d(in_channels, squeeze_channels, 1)
+        self.fc2 = Conv2d(squeeze_channels, in_channels, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         s = x.mean(dim=(2, 3), keepdim=True)
@@ -230,7 +322,7 @@ class SeparableConv(nn.Module):
         super().__init__()
         self.dw = ConvBNAct(in_channels, in_channels, 3, groups=in_channels,
                             act=relu6, bn_eps=bn_eps, bn_momentum=bn_momentum)
-        self.pw = nn.Conv2d(in_channels, features, 1)
+        self.pw = Conv2d(in_channels, features, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.pw(self.dw(x))

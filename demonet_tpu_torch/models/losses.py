@@ -14,6 +14,17 @@ one-hot products; a gather selects the same values exactly. Its argsort
 is stable, and so is the one here (`stable=True`): ties in CE rank by
 anchor index, as there. N stays on the device, so nothing here waits for
 the device.
+
+With bfloat16 logits (a bf16 model) the flow is the JAX package's
+(demonet_tpu/models/losses.py:79-121): N is cast to the logits' dtype
+(counts above 256 round); the gt boxes are cast to it before the float32
+regression targets are made from them (coordinates in [256, 512) round
+to 2 px); logsumexp (`logsumexp`: as XLA compiles it), the label logit,
+the CE and the mining run in it
+(ties among negatives are then common: the stable sort cuts them by
+anchor index, as `jnp.argsort` does); the deltas minus the float32
+targets are float32. The classification loss comes out in the logits'
+dtype, the regression loss in float32.
 """
 
 from __future__ import annotations
@@ -31,6 +42,23 @@ def smooth_l1(x: torch.Tensor, beta: float = 1.0) -> torch.Tensor:
     it."""
     ax = x.abs()
     return torch.where(ax < beta, 0.5 * ax * ax / beta, ax - 0.5 * beta)
+
+
+def logsumexp(x: torch.Tensor) -> torch.Tensor:
+    """logsumexp over the last axis, as the JAX package's compiled step
+    computes `jax.nn.logsumexp`. In float32 and float64 torch's own. In a
+    low-precision dtype (bfloat16) XLA keeps the exponentials in float32
+    inside its fused reduction: x - max rounded to the dtype, exp and sum
+    in float32, the sum rounded, its log rounded, the max added in the
+    dtype. Torch's logsumexp rounds each exponential first, and 1 CE in
+    50 then moves by an ulp, enough to move the hard-negative cut. The
+    max carries no gradient (JAX's stop_gradient)."""
+    if x.dtype in (torch.float32, torch.float64):
+        return torch.logsumexp(x, dim=-1)
+    amax = x.detach().amax(dim=-1, keepdim=True)
+    amax = torch.where(torch.isfinite(amax), amax, torch.zeros_like(amax))
+    total = (x - amax).to(torch.float32).exp().sum(dim=-1).to(x.dtype)
+    return total.to(torch.float32).log().to(x.dtype) + amax[..., 0]
 
 
 def match_batch(
@@ -63,7 +91,7 @@ def classification_terms(
     safe_idx = matched_idxs.clamp(0, gt_labels.shape[1] - 1)
     labels = torch.gather(gt_labels.long(), 1, safe_idx)
     targets = torch.where(fg, labels, 0)
-    logz = torch.logsumexp(cls_logits, dim=-1)
+    logz = logsumexp(cls_logits)
     label_logit = torch.gather(cls_logits, 2, targets[..., None])[..., 0]
     ce = logz - label_logit
 
@@ -109,11 +137,12 @@ def multibox_loss(
                                       neg_to_pos_ratio)
     n = fg.sum().clamp(min=1).to(cls_logits.dtype)
 
-    # the regression targets in float32 whatever the logits' dtype, as the
-    # JAX package computes them
+    # the regression targets in float32 from the gt boxes rounded to the
+    # logits' dtype, as the JAX package's one-hot product makes them
     safe_idx = matched_idxs.clamp(0, gt_boxes.shape[1] - 1)
-    matched_gt = torch.gather(gt_boxes.to(torch.float32), 1,
-                              safe_idx[..., None].expand(b, a, 4))
+    matched_gt = torch.gather(
+        gt_boxes.to(cls_logits.dtype).to(torch.float32), 1,
+        safe_idx[..., None].expand(b, a, 4))
     target_reg = encode_boxes(matched_gt, anchors[None], box_coder_weights)
     reg_l = smooth_l1(bbox_regression - target_reg).sum(dim=-1)   # (B, A)
     bbox_loss = (reg_l * fg).sum() / n

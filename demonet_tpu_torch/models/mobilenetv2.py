@@ -20,6 +20,7 @@ from torch import nn
 from demonet_tpu_torch.models.layers import (
     ConvBNAct,
     InvertedResidualV2,
+    Linear,
     dropout,
     make_divisible,
     relu6,
@@ -90,7 +91,7 @@ class MobileNetV2(nn.Module):
         super().__init__()
         self.features = MobileNetV2Features(width_mult=width_mult)
         self.dropout_rate = dropout_rate
-        self.classifier = nn.Linear(self.features.last_channel, num_classes)
+        self.classifier = Linear(self.features.last_channel, num_classes)
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:

@@ -16,6 +16,7 @@ from torch import nn
 from demonet_tpu_torch.models.layers import (
     ConvBNAct,
     InvertedResidualV3,
+    Linear,
     dropout,
     hard_swish,
     make_divisible,
@@ -157,9 +158,9 @@ class MobileNetV3(nn.Module):
                                                reduced_tail, dilated)
         self.features = MobileNetV3Features(rows, bn_momentum=0.01)
         self.dropout_rate = dropout_rate
-        self.pre_classifier = nn.Linear(6 * rows[-1].out_channels,
+        self.pre_classifier = Linear(6 * rows[-1].out_channels,
                                         last_channel)
-        self.classifier = nn.Linear(last_channel, num_classes)
+        self.classifier = Linear(last_channel, num_classes)
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:

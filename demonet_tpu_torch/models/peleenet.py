@@ -25,7 +25,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from demonet_tpu_torch.models.layers import BatchNorm, dropout
+from demonet_tpu_torch.models.layers import BatchNorm, Conv2d, Linear, dropout
 from demonet_tpu_torch.models.vgg import max_pool_torch
 
 
@@ -46,8 +46,8 @@ class BasicConv2d(nn.Module):
     def __init__(self, in_channels: int, features: int, kernel_size: int = 3,
                  stride: int = 1, padding: int = 0, activation: bool = True):
         super().__init__()
-        self.conv = nn.Conv2d(in_channels, features, kernel_size,
-                              stride=stride, padding=padding, bias=False)
+        self.conv = Conv2d(in_channels, features, kernel_size,
+                           stride=stride, padding=padding, bias=False)
         self.norm = BatchNorm(features, eps=1e-5, momentum=0.1)
         self.activation = activation
 
@@ -164,7 +164,7 @@ class PeleeNet(nn.Module):
         self.features = PeleeNetFeatures(growth_rate, block_config,
                                          num_init_features, bn_size)
         self.drop_rate = drop_rate
-        self.classifier = nn.Linear(self.features.num_features, num_classes)
+        self.classifier = Linear(self.features.num_features, num_classes)
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -180,8 +180,8 @@ class _ConvReLU(nn.Module):
     def __init__(self, in_channels: int, features: int, kernel_size: int = 1,
                  padding: int = 0):
         super().__init__()
-        self.conv = nn.Conv2d(in_channels, features, kernel_size,
-                              padding=padding, bias=False)
+        self.conv = Conv2d(in_channels, features, kernel_size,
+                           padding=padding, bias=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return torch.relu(self.conv(x))

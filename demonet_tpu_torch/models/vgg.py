@@ -21,6 +21,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from demonet_tpu_torch.models.layers import Conv2d
+
 
 def max_pool_torch(x: torch.Tensor, k: int, s: int, padding: int = 0,
                    ceil_mode: bool = False) -> torch.Tensor:
@@ -34,9 +36,19 @@ def max_pool_torch(x: torch.Tensor, k: int, s: int, padding: int = 0,
 
 
 def _conv(in_channels: int, features: int, kernel: int = 3, stride: int = 1,
-          padding: int = 1, dilation: int = 1) -> nn.Conv2d:
-    return nn.Conv2d(in_channels, features, kernel, stride=stride,
+          padding: int = 1, dilation: int = 1) -> Conv2d:
+    return Conv2d(in_channels, features, kernel, stride=stride,
                      padding=padding, dilation=dilation)
+
+
+def l2_rescale(x: torch.Tensor, scale_weight: torch.Tensor) -> torch.Tensor:
+    """The learned L2 rescale of conv4_3 over the channels of NCHW x, in the
+    JAX order and in x's dtype (the sum of squares too, in bfloat16 with a
+    bf16 model): scale * x / max(norm, 1e-12), the float32 scale cast to
+    x's dtype first."""
+    norm = torch.sqrt(torch.sum(x * x, dim=1, keepdim=True))
+    return (scale_weight[None, :, None, None].to(x.dtype) * x
+            / norm.clamp(min=1e-12))
 
 
 # (name, in, out, kernel, stride, padding) of the SSD extras after fc7
@@ -80,11 +92,7 @@ class VGG16SSDExtractor(nn.Module):
         x = max_pool_torch(self._stage(x, 2, 2), 2, 2)
         x = max_pool_torch(self._stage(x, 3, 3), 2, 2, ceil_mode=True)
         x = self._stage(x, 4, 3)
-        # L2 rescale of conv4_3 over the channels, in the JAX order:
-        # scale * x / max(norm, 1e-12)
-        norm = torch.sqrt(torch.sum(x * x, dim=1, keepdim=True))
-        outputs = [self.scale_weight[None, :, None, None].to(x.dtype) * x
-                   / norm.clamp(min=1e-12)]
+        outputs = [l2_rescale(x, self.scale_weight)]
         x = self._stage(max_pool_torch(x, 2, 2), 5, 3)
         x = max_pool_torch(x, 3, 1, padding=1)
         x = torch.relu(self.fc7(torch.relu(self.fc6(x))))

@@ -9,22 +9,27 @@ plain PyTorch version of the same function, which the tests hold bit for
 bit against the JAX reference `jax.vmap(nms_mask)`.
 
 The kernel works on an IoU bitmask (bit j of row i: j > i overlaps i)
-swept in score order. It has two launch shapes, both exact: "block"
+swept in score order. It has three launch shapes, all exact: "block"
 (K <= 512; a block per problem computes the mask rows of the kept
-candidates only, as it walks the chain) and "tiled" (K <= 8,192; the
-whole mask in a device-memory scratch that the wrapper allocates, built
-by a grid over 64 x 64 tiles on every SM, then swept by one warp per
-problem). The wrapper takes the block launch up to K = 512, where there
-are many problems (the reference postprocess: P = B * 90, K = 300), and
-the tiled one above, where there are few long ones (the fused path:
-P = B, K = 1,024 or 2,048): `launch_shape(K)`. On the card, K above
-8,192 raises.
+candidates only, as it walks the chain), "tiled" (K <= 8,192; the whole
+mask in a device-memory scratch that the wrapper allocates, built by a
+grid over 64 x 64 tiles on every SM, then swept by one warp per problem)
+and "long" (any K above; the same mask, swept by a block per problem
+that keeps the removed bitset in shared memory and reads the rows in
+64-bit column pieces). The wrapper takes the block launch up to
+K = 512, where there are many problems (the reference postprocess:
+P = B * 90, K = 300), the tiled one above, where there are few long ones
+(the fused path: P = B, K = 1,024 or 2,048), and the long one above
+8,192 (the public NMS of many boxes): `launch_shape(K)`. The tiled and
+long launches need P * K * ceil(K / 64) * 8 bytes of scratch
+(`scratch_bytes`: 50 MB at P = 1, K = 20,000); a problem whose scratch
+cannot be allocated raises MemoryError, saying so.
 
 The public `nms_mask`, `nms` and `batched_nms` (counterparts of
 demonet_tpu/ops/nms.py) take one unsorted problem of N boxes: they sort
 it stably by score, run it through `nms_keep_batch` as P = 1, K = N (the
-kernel on a CUDA tensor, so N <= 8,192 there; the plain version on the
-CPU), and scatter the keep mask back to the original order.
+kernel on a CUDA tensor, the plain version on the CPU), and scatter the
+keep mask back to the original order.
 
 The IoU is computed term by term as the reference writes it:
 inter = max(min(x2) - max(x1), 0) * max(min(y2) - max(y1), 0),
@@ -43,10 +48,12 @@ import torch
 from demonet_tpu_torch.ops import _build
 
 # mask rows of 64-bit words. The block launch holds a problem's boxes and
-# bitset in shared memory; the tiled one sweeps with 4 words a lane at most
+# bitset in shared memory; the tiled one sweeps with 4 words a lane at
+# most; the long one takes any K above
 WORD = 64
 BLOCK_MAX_K = 512
 MAX_K = 8192
+_LAUNCH = {"block": 1, "tiled": 2, "long": 3}
 
 
 def nms_keep_batch_plain(boxes: torch.Tensor, scores: torch.Tensor,
@@ -90,7 +97,18 @@ def _kernel():
 
 def launch_shape(k: int) -> str:
     """The kernel's launch shape for problems of K candidates."""
-    return "block" if k <= BLOCK_MAX_K else "tiled"
+    if k <= BLOCK_MAX_K:
+        return "block"
+    return "tiled" if k <= MAX_K else "long"
+
+
+def scratch_bytes(p: int, k: int) -> int:
+    """Device scratch of a launch over P problems of K candidates: the
+    (P, K, ceil(K / 64)) int64 IoU bitmask of the tiled and long launches,
+    none for the block launch."""
+    if launch_shape(k) == "block":
+        return 0
+    return p * k * -(-k // WORD) * 8
 
 
 def nms_keep_batch(boxes: torch.Tensor, scores: torch.Tensor,
@@ -127,21 +145,24 @@ def nms_keep_batch(boxes: torch.Tensor, scores: torch.Tensor,
     if boxes.data_ptr() % 16:
         raise ValueError("nms_keep_batch: boxes must be 16-byte aligned")
     p, k, _ = boxes.shape
-    if k > MAX_K:
-        raise ValueError(f"nms_keep_batch: K={k} exceeds the kernel's limit "
-                         f"of {MAX_K}")
     shape = launch_shape(k)
     keep = torch.empty((p, k), dtype=torch.bool, device=boxes.device)
     scratch = None
-    if shape == "tiled":   # the IoU bitmask: (P, K, ceil(K / 64)) words
-        scratch = torch.empty((p, k, -(-k // WORD)), dtype=torch.int64,
-                              device=boxes.device)
+    if shape != "block":   # the IoU bitmask: (P, K, ceil(K / 64)) words
+        try:
+            scratch = torch.empty((p, k, -(-k // WORD)), dtype=torch.int64,
+                                  device=boxes.device)
+        except torch.OutOfMemoryError as e:
+            raise MemoryError(
+                f"nms_keep_batch: P={p} problems of K={k} need "
+                f"{scratch_bytes(p, k)} bytes of device scratch for the IoU "
+                "bitmask, which cannot be allocated") from e
     with torch.cuda.device(boxes.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = _kernel()(boxes.data_ptr(), scores.data_ptr(), keep.data_ptr(),
                          None if scratch is None else scratch.data_ptr(),
                          p, k, iou_threshold, score_threshold,
-                         1 if shape == "block" else 2, stream)
+                         _LAUNCH[shape], stream)
     _build.check(code, "nms_keep_batch")
     nms_keep_batch.launches += 1
     return keep
@@ -167,9 +188,10 @@ def nms_mask(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float,
 
     Candidates are ordered by descending score, ties by index (a stable
     sort of the negated score, padding last, as `jnp.argsort` orders
-    them). On a CUDA tensor the ordered problem goes to the kernel, which
-    takes N <= 8,192 (`MAX_K`): above it `nms_keep_batch` raises
-    ValueError naming the limit.
+    them). On a CUDA tensor the ordered problem goes to the kernel; its
+    tiled and long launches (N > 512) take N * ceil(N / 64) * 8 bytes of
+    device scratch, and an N whose scratch cannot be allocated raises
+    MemoryError.
     """
     n = boxes.shape[0]
     valid = scores > score_threshold

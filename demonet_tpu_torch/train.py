@@ -23,10 +23,12 @@ CLI's data mesh and multi-host bootstrap wait for ROADMAP Queue 1 item 10.
 `--pretrained` and `--torch-weights` load a checkpoint in the reference's
 torch layout (`utils.pretrained`, `utils.torch_weights`) before
 `--npz-weights` applies; `--tensorboard` adds TensorBoard scalars where
-the `tensorboard` package imports. Flags of what is not ported raise
-NotImplementedError naming the ROADMAP item: `--bf16` and `--remat`
-(7b); `--lane-pack` and `--stem-s2d` are TPU layout knobs, not ported on
-purpose.
+the `tensorboard` package imports. `--bf16` builds the model with
+bfloat16 compute (parameters, BN statistics and checkpoints stay
+float32, so a run resumes across the flag either way); `--remat`
+recomputes the activations in the backward pass of both train steps.
+`--lane-pack` and `--stem-s2d` are TPU layout knobs, not ported on
+purpose: they raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -86,8 +88,8 @@ def get_args_parser(add_help: bool = True) -> argparse.ArgumentParser:
                         help="eval postprocess: 'fused' = trained-model fast "
                              "path (chunk-gather select + one NMS/image)")
     parser.add_argument("--remat", action="store_true",
-                        help="recompute activations in the backward pass; "
-                             "not ported yet (raises)")
+                        help="recompute activations in the backward pass "
+                             "(less activation memory, one more forward)")
     parser.add_argument("--steps-per-call", default=1, type=int,
                         help="optimizer steps per train-step call: K batches "
                              "are stacked and run as one call (metrics/"
@@ -114,7 +116,7 @@ def get_args_parser(add_help: bool = True) -> argparse.ArgumentParser:
                              "--test-only evaluation of a bench asset")
     parser.add_argument("--seed", default=0, type=int)
     parser.add_argument("--bf16", action="store_true",
-                        help="bfloat16 compute; not ported yet (raises)")
+                        help="bfloat16 compute (params stay fp32)")
     parser.add_argument("--tensorboard", action="store_true",
                         help="also write TensorBoard scalars (where the "
                              "tensorboard package imports)")
@@ -125,8 +127,6 @@ def get_args_parser(add_help: bool = True) -> argparse.ArgumentParser:
 
 
 _UNPORTED_FLAGS = (
-    ("bf16", "--bf16", "ROADMAP Queue 1, item 7b"),
-    ("remat", "--remat", "ROADMAP Queue 1, item 7b"),
     ("lane_pack", "--lane-pack", "a TPU layout knob, not ported on purpose"),
     ("stem_s2d", "--stem-s2d", "a TPU layout knob, not ported on purpose"),
 )
@@ -188,6 +188,8 @@ def main(args):
     or None when no epoch ran."""
     check_ported(args)
 
+    import torch
+
     from demonet_tpu_torch.data.loader import DetectionLoader
     from demonet_tpu_torch.engine.evaluate import evaluate, make_predict_step
     from demonet_tpu_torch.engine.state import (
@@ -224,7 +226,8 @@ def main(args):
     ds_train, ds_val, default_classes = build_datasets(args)
     num_classes = args.num_classes or default_classes
 
-    model_kw = dict(num_classes=num_classes, device=device, seed=args.seed)
+    model_kw = dict(num_classes=num_classes, device=device, seed=args.seed,
+                    dtype=torch.bfloat16 if args.bf16 else torch.float32)
     if getattr(args, "score_thresh", None) is not None:
         model_kw["score_thresh"] = args.score_thresh
     detector = get_model(args.model, **model_kw)
@@ -283,10 +286,10 @@ def main(args):
         start_epoch = epoch + 1
         print(f"resumed from {args.resume} at epoch {start_epoch}")
 
-    train_step = make_train_step(detector)
+    train_step = make_train_step(detector, remat=args.remat)
     spc = max(1, getattr(args, "steps_per_call", 1))
     multi_step = make_train_step(
-        detector, steps_per_call=spc) if spc > 1 else None
+        detector, remat=args.remat, steps_per_call=spc) if spc > 1 else None
     predict_step = make_predict_step(
         detector, impl=getattr(args, "postprocess", "reference"))
 

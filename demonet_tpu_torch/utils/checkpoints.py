@@ -7,7 +7,9 @@ one `torch.save` file, `state.pt`, in place of orbax's tree: the model's
 state_dict (parameters and BN statistics), the optimizer's (momentum
 buffers and learning rate) and the step. Only rank 0 writes, and the
 file is written under another name and renamed, so a reader never sees
-half of one.
+half of one. A bf16 model keeps float32 parameters, statistics and
+momentum, so its checkpoint is a float32 one: it resumes into a float32
+model and the reverse, as in the JAX package.
 """
 
 from __future__ import annotations

@@ -6,7 +6,8 @@ The port's parser keeps every flag and default of the JAX CLI and adds
 CPU (`--device cpu`), writes a checkpoint, and `--test-only --resume`
 evaluates it to the same COCO summary, with the loader's worker pool and
 with the fused postprocess too; so does ssd_lite_mobilenet_v2, at its own
-320x320. A classifier's name raises before training. The datasets and
+320x320, and so do `--bf16` and `--remat` (the checkpoint resuming across
+`--bf16` either way). A classifier's name raises before training. The datasets and
 evaluators the CLI builds equal the JAX CLI's. The registry builds all
 nine of the JAX package's names. No JAX model is built.
 """
@@ -47,7 +48,6 @@ def test_parser_keeps_every_jax_flag_and_default():
 
 
 @pytest.mark.parametrize("flag,where", [
-    (["--bf16"], "7b"), (["--remat"], "7b"),
     (["--lane-pack"], "on purpose"), (["--stem-s2d"], "on purpose"),
 ])
 def test_unported_flags_raise(flag, where):
@@ -170,6 +170,53 @@ def test_cli_trains_ssd_lite_mobilenet_v2_and_resumes(tmp_path, one_thread):
     resumed = port_train.main(port_train.get_args_parser().parse_args(
         [*argv, "--test-only", "--resume", ckpt]))
     np.testing.assert_array_equal(resumed.stats, trained.stats)
+
+
+@pytest.mark.parametrize("flags", [["--bf16"], ["--remat"],
+                                   ["--bf16", "--remat"]],
+                         ids=["bf16", "remat", "bf16_remat"])
+def test_bf16_and_remat_flags_train_and_resume(tmp_path, one_thread,
+                                               monkeypatch, flags):
+    """--bf16 builds the model with bfloat16 compute and --remat reaches
+    both train steps; each trains an epoch (steps_per_call 2 takes the
+    remat too), checkpoints float32 tensors, and --test-only --resume with
+    the same flags gives the same summary; the checkpoint resumes across
+    --bf16 either way. A --remat run is bit-equal to the run without it."""
+    from demonet_tpu_torch.engine import train as train_mod
+
+    built, remats = [], []
+    get_model, make_step = builders.get_model, train_mod.make_train_step
+
+    def spy_model(name, **kw):
+        built.append(kw["dtype"])
+        return get_model(name, **kw)
+
+    def spy_step(detector, **kw):
+        remats.append(kw.get("remat", False))
+        return make_step(detector, **kw)
+
+    monkeypatch.setattr(builders, "get_model", spy_model)
+    monkeypatch.setattr(train_mod, "make_train_step", spy_step)
+    out = str(tmp_path / "run")
+    trained = _run([*flags, "--epochs", "1", "--npz-weights", _NPZ,
+                    "--output-dir", out, "--steps-per-call", "2"])
+    bf16 = "--bf16" in flags
+    assert built == [torch.bfloat16 if bf16 else torch.float32]
+    assert remats == ["--remat" in flags] * 2
+    assert np.isfinite(trained.stats).all() and trained.stats[1] > 0
+    ckpt = os.path.join(out, "checkpoint_0")
+    saved = torch.load(os.path.join(ckpt, "state.pt"), weights_only=True)
+    assert all(v.dtype in (torch.float32, torch.int64)
+               for v in saved["model"].values())
+    resumed = _run(["--test-only", "--resume", ckpt, *flags])
+    np.testing.assert_array_equal(resumed.stats, trained.stats)
+    crossed = _run(["--test-only", "--resume", ckpt,
+                    *([] if bf16 else ["--bf16"])])
+    assert np.isfinite(crossed.stats).all()
+    if flags == ["--remat"]:
+        plain = _run(["--epochs", "1", "--npz-weights", _NPZ, "--output-dir",
+                      str(tmp_path / "plain"), "--steps-per-call", "2"])
+        np.testing.assert_array_equal(plain.stats, trained.stats)
 
 
 @pytest.mark.parametrize("name", ["mobilenet_v2", "peleenet_v1"])

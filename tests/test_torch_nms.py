@@ -132,13 +132,15 @@ def _word_boundary_problems(k, seed=11):
     return boxes, scores
 
 
-def _bitmask_keep(boxes, scores, iou, thr):
+def _bitmask_keep(boxes, scores, iou, thr, long_sweep=False):
     """Test-only model of csrc/nms.cu: bit j of mask row i set when j > i
     and IoU(i, j) > iou (inter == 0 decided without the division), rows
     packed in 64-bit words, then a sweep in score order that carries the
     current word and ORs in the rows of kept candidates. (The kernel's
     block launch computes only the kept rows, as it sweeps; the rows it
-    reads are these.)"""
+    reads are these.) `long_sweep` models the long launch's order: the
+    chain through a tile on the rows' diagonal words first, then the kept
+    rows' later words OR-ed in, a column piece at a time."""
     p, k, _ = boxes.shape
     words = -(-k // 64)
     x1, y1, x2, y2 = boxes.unbind(-1)
@@ -167,12 +169,19 @@ def _bitmask_keep(boxes, scores, iou, thr):
     for q in range(p):
         for w in range(words):
             cur = removed[q, w]
+            kept = []
             for b in range(min(64, k - 64 * w)):
                 if not (int(cur) >> b) & 1:
                     row = mask[q, 64 * w + b]
                     cur |= row[w]
-                    removed[q, w + 1:] |= row[w + 1:]
+                    kept.append(b)
+                    if not long_sweep:
+                        removed[q, w + 1:] |= row[w + 1:]
             removed[q, w] = cur
+            if long_sweep:
+                for piece in range(w + 1, words):
+                    for b in kept:
+                        removed[q, piece] |= mask[q, 64 * w + b, piece]
     bits = (removed[..., None] & weights) != 0
     return torch.from_numpy(~bits.reshape(p, words * 64)[:, :k])
 
@@ -199,7 +208,30 @@ def test_bitmask_model_bit_equal_to_plain(k, iou):
     assert torch.equal(_bitmask_keep(boxes, scores, iou, _THR), want)
 
 
+@pytest.mark.parametrize("k", [65, 300, 576, 1024])
+@pytest.mark.parametrize("iou", [0.5, 0.49])
+def test_long_sweep_model_bit_equal_to_plain(k, iou):
+    """The long launch's order of work (chain per tile, then the kept
+    rows' later column pieces) keeps what the greedy scan keeps."""
+    boxes, scores = (torch.from_numpy(t)
+                     for t in _word_boundary_problems(k, seed=13))
+    want = port_nms.nms_keep_batch_plain(boxes, scores, iou, _THR)
+    assert torch.equal(
+        _bitmask_keep(boxes, scores, iou, _THR, long_sweep=True), want)
+
+
 def test_launch_shape_by_k():
-    ks = (1, 300, 512, 513, 576, 1024, 2048, port_nms.MAX_K)
+    ks = (1, 300, 512, 513, 576, 1024, 2048, port_nms.MAX_K,
+          port_nms.MAX_K + 1, 16384, 20000, 1 << 20)
     assert [port_nms.launch_shape(k) for k in ks] == \
-        ["block"] * 3 + ["tiled"] * 5
+        ["block"] * 3 + ["tiled"] * 5 + ["long"] * 4
+
+
+def test_scratch_bytes_by_k():
+    """The IoU bitmask of the tiled and long launches: P * K * ceil(K / 64)
+    words of 8 bytes (50 MB for one problem of 20,000 boxes); the block
+    launch takes none."""
+    assert port_nms.scratch_bytes(2880, 300) == 0
+    assert port_nms.scratch_bytes(32, 2048) == 32 * 2048 * 32 * 8
+    assert port_nms.scratch_bytes(1, port_nms.MAX_K + 1) == 8193 * 129 * 8
+    assert port_nms.scratch_bytes(1, 20000) == 20000 * 313 * 8 == 50_080_000

@@ -192,18 +192,22 @@ def train_batch(seed, size, classes, b=1, g=3):
             "gt_valid": valid}
 
 
-def jax_steps(jd, variables, batch, steps, dtype):
+def jax_steps(jd, variables, batch, steps, dtype, lr=LR):
     """The JAX package's jitted train step, `steps` times from
     `variables` on `batch`, in `dtype` (the model must be built in it):
-    each step's metrics and the variables after the last."""
-    cast = lambda a: a.astype(dtype)  # noqa: E731
+    each step's metrics and the variables after the last. The variables
+    and images are in `dtype` or float32, whichever is wider: a bfloat16
+    model keeps float32 parameters and takes float32 images, as the JAX
+    CLI's `--bf16` does."""
+    wide = jnp.promote_types(dtype, jnp.float32)
+    cast = lambda a: a.astype(wide)  # noqa: E731
     v = jax.tree_util.tree_map(cast, variables)
     state = JaxTrainState.create(
         apply_fn=jd.model.apply, params=v["params"],
         batch_stats=v.get("batch_stats", {}),
-        tx=jax_optimizer(LR, MOMENTUM, WD))
+        tx=jax_optimizer(lr, MOMENTUM, WD))
     step = jax_train_step(jd, donate=False)
-    b = dict(batch, images=batch["images"].astype(dtype))
+    b = dict(batch, images=batch["images"].astype(wide))
     metrics = []
     for _ in range(steps):
         state, m = step(state, b)
