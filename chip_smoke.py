@@ -148,6 +148,23 @@ package. The script prints one JSON line per phase:
   bf16_cli     the train CLI with --bf16: an epoch of 64 synthetic frames
                with a checkpoint, --test-only --resume with --bf16 (the
                same summary) and without it
+  distributed  the data-parallel mesh (parallel/, make_train_step(mesh=),
+               evaluate(mesh=)): world size 1 over NCCL in this process
+               (two mesh steps at b32 bit-equal to two plain steps; the
+               mesh predict step bit-equal in the reference and sparse
+               top-k modes, K1/K2/K3 counted); two spawned ranks on the
+               one card, over NCCL where a probe pair finds that it takes
+               two ranks on one device, else over gloo with CUDA tensors
+               (16 rows each of the b32 batch: loss terms and state after
+               2 steps against the single-process steps, the ranks bit-
+               equal; a sharded evaluation of 64 synthetic frames, every
+               image merged once, AP against the single-process one, K1,
+               K2, K3 counted per rank); the train CLI under
+               `torch.distributed.run --nproc_per_node 1` (NCCL), an epoch
+               and --test-only --resume to the same summary; ms per step
+               at world 1 and 2 (16 rows a rank), the gradient bucket's
+               all-reduce ms and bytes; the ranks' and the CLI's printing
+               go to chiprun_out/distributed*.log
   launch_floor the device time of a one-float fill, the shortest kernel
 
 then `previous_design` (K1's, K3's and K4's times before their
@@ -1812,7 +1829,12 @@ def without_modules(scratch, *names):
     again after it), in this process and in the spawn processes started
     in it: stand-ins that raise ImportError, written under `scratch`, go
     first on sys.path, which a spawn child takes from its parent. Shows
-    that a path, its loader workers included, runs without them."""
+    that a path, its loader workers included, runs without them. With no
+    names it changes nothing (the stand-ins of an earlier block stay off
+    sys.path)."""
+    if not names:
+        yield
+        return
     blocker = os.path.join(scratch, "blocked_modules")
     os.makedirs(blocker, exist_ok=True)
     for n in names:
@@ -3244,6 +3266,441 @@ def bf16_cli():
           "seconds": time.perf_counter() - t0_phase})
 
 
+# -- data parallelism: torch.distributed ---------------------------------------
+# one b32 batch of the training frames, 16 rows a rank at world 2
+_DIST_ROWS, _DIST_SEED = 16, 5000
+# the sharded evaluation: the train CLI's synthetic frames, 32 a batch
+_DIST_FRAMES, _DIST_EVAL_BATCH = 64, 32
+_DIST_TIMED_STEPS = 5
+# any collective of the phase raises after this long; a rank process that
+# outlives _DIST_JOIN_S is killed and fails the phase
+_DIST_TIMEOUT_S, _DIST_JOIN_S = 120.0, 300.0
+_DIST_AP_ATOL = 1e-3
+_DIST_LOG = os.path.join(_HERE, "chiprun_out", "distributed.log")
+_SUMMARY_LINE = r"^ Average (Precision|Recall) .* = -?\d+\.\d+$"
+
+
+def free_port():
+    """A TCP port on localhost that nothing listens on now."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def run_ranks(target, args_by_rank):
+    """target(*args) in one spawned process per entry of args_by_rank,
+    each joined within _DIST_JOIN_S and killed after it; their exit
+    codes (None for one that was killed)."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=target, args=a) for a in args_by_rank]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + _DIST_JOIN_S
+    for p in procs:
+        p.join(max(0.0, deadline - time.monotonic()))
+    codes = [None if p.is_alive() else p.exitcode for p in procs]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join(10)
+    return codes
+
+
+def _probe_rank(rank, port, out_path):
+    """One of two ranks on the one card (both on cuda:0) asking NCCL for
+    a group and one all-reduce; writes {'ok', 'error'} and leaves without
+    tearing the group down (a failed communicator may not come apart)."""
+    os.environ["LOCAL_RANK"] = "0"
+    import torch
+    import torch.distributed as dist
+
+    from demonet_tpu_torch.parallel import initialize
+
+    out = {"rank": rank}
+    try:
+        initialize(f"tcp://localhost:{port}", 2, rank, backend="nccl",
+                   timeout_s=60.0)
+        t = torch.ones(1, device="cuda")
+        dist.all_reduce(t)
+        out["ok"] = float(t) == 2.0
+    except Exception as e:  # the probe's answer: recorded, not raised
+        out.update(ok=False, error=f"{type(e).__name__}: {str(e)[:400]}")
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+    sys.stdout.flush()
+    os._exit(0)
+
+
+def step_ms(step, state, rows, n):
+    """Median ms of n closed-loop steps, each synchronised (after one
+    untimed step)."""
+    import numpy as np
+    import torch
+
+    times = []
+    for _ in range(n + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _ = step(state, rows)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times[1:]))
+
+
+def bucket_all_reduce(model, n=10):
+    """The train step's gradient bucket alone (every parameter and the two
+    loss terms, float32) through one SUM all-reduce: median ms of n
+    calls, and its bytes."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    params = list(model.parameters())
+    flat = torch.zeros(sum(p.numel() for p in params) + 2,
+                       device=params[0].device)
+    times = []
+    for _ in range(n + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dist.all_reduce(flat)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return {"ms": float(np.median(times[1:])),
+            "bytes": flat.numel() * flat.element_size()}
+
+
+def _dist_rank(rank, backend, port, out_path, log_path):
+    """One of two ranks on the one card: two mesh steps on its 16 rows of
+    the b32 batch (metrics, and the state after step 2 on the host),
+    timed steps and the gradient bucket's all-reduce, and a sharded
+    evaluation of the trained weights over its shard of the synthetic
+    frames in the sparse top-k mode, with K1, K2 and K3 counted."""
+    os.environ["LOCAL_RANK"] = "0"
+    import torch
+    import torch.distributed as dist
+
+    from demonet_tpu_torch.data.coco_eval import CocoEvaluator
+    from demonet_tpu_torch.data.loader import DetectionLoader
+    from demonet_tpu_torch.data.presets import DetectionPresetEval
+    from demonet_tpu_torch.data.synthetic import SyntheticDetection
+    from demonet_tpu_torch.engine.evaluate import evaluate, make_predict_step
+    from demonet_tpu_torch.engine.state import (
+        create_train_state,
+        make_optimizer,
+    )
+    from demonet_tpu_torch.engine.train import make_train_step
+    from demonet_tpu_torch.ops.gather import gather_rows_batch
+    from demonet_tpu_torch.ops.nms import nms_keep_batch
+    from demonet_tpu_torch.ops.topk import topk_sparse
+    from demonet_tpu_torch.parallel import data_mesh, initialize
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    initialize(f"tcp://localhost:{port}", 2, rank, backend=backend,
+               timeout_s=_DIST_TIMEOUT_S)
+    try:
+        mesh = data_mesh([torch.device("cuda", 0)])
+        det = trained_detector("cuda")
+        state = create_train_state(det, make_optimizer(
+            _TRAIN_LR, _TRAIN_MOMENTUM, _TRAIN_WD))
+        step = make_train_step(det, mesh=mesh)
+        full = train_batch(_DIST_SEED, 2 * _DIST_ROWS, "cuda")
+        rows = {k: v[rank * _DIST_ROWS:(rank + 1) * _DIST_ROWS].contiguous()
+                for k, v in full.items()}
+        metrics = []
+        for _ in range(2):
+            state, m = step(state, rows)
+            metrics.append({k: float(v) for k, v in m.items()})
+        after = {k: v.to("cpu", copy=True)
+                 for k, v in det.model.state_dict().items()}
+        timed_ms = step_ms(step, state, rows, _DIST_TIMED_STEPS)
+        bucket = bucket_all_reduce(det.model)
+
+        ev_det = trained_detector("cuda")
+        ds = SyntheticDetection(n=_DIST_FRAMES, num_classes=7, seed=1,
+                                transforms=DetectionPresetEval())
+        loader = DetectionLoader(ds, _DIST_EVAL_BATCH, image_size=(320, 320),
+                                 num_shards=2, shard_index=rank)
+        kernels = (nms_keep_batch, gather_rows_batch, topk_sparse)
+        for fn in kernels:
+            fn.launches = 0
+        topk_sparse.long_launches = 0
+        with open(log_path, "w") as log, contextlib.redirect_stdout(log):
+            ev = evaluate(make_predict_step(ev_det, mesh=mesh,
+                                            topk_impl="sparse"),
+                          ev_det.model, loader,
+                          CocoEvaluator(ds.ground_truth_for_eval()),
+                          mesh=mesh)
+        torch.cuda.synchronize()
+        counts = {fn.__name__: fn.launches for fn in kernels}
+        counts["topk_sparse_long"] = topk_sparse.long_launches
+        torch.save({"backend": dist.get_backend(), "metrics": metrics,
+                    "state": after, "step_ms": timed_ms, "bucket": bucket,
+                    "eval_stats": [float(v) for v in ev.stats],
+                    "merged_images": sorted(ev.detections),
+                    "launches": counts}, out_path)
+    finally:
+        dist.destroy_process_group()
+
+
+def summary_lines(text):
+    """The COCO summary lines a CLI printed."""
+    import re
+
+    return [m.group(0)
+            for m in re.finditer(_SUMMARY_LINE, text, re.MULTILINE)]
+
+
+def distributed(trained, batches, sizes, reset_counts, read_counts):
+    """distributed: the data-parallel mesh on the card.
+
+    1. World size 1 over NCCL in this process: two mesh steps at b32 bit-
+       equal to two steps without a mesh (cuDNN deterministic); the mesh
+       predict step's detections bit-equal to the plain step's in the
+       reference and sparse top-k modes, K1/K2/K3 counted; ms per step at
+       a local batch of 16, with and without the mesh in turns, a trace
+       of each, and the gradient bucket's all-reduce.
+    2. Two processes on the one card: NCCL is asked first (a probe pair);
+       where it refuses two ranks on one device, the ranks join over gloo
+       with CUDA tensors (copied through the host). Each rank takes 16 of
+       the b32 batch's rows: after 2 steps the loss terms within 1e-4
+       relative and every state entry within 2e-3 absolute of the
+       single-process b32 steps, the ranks' states bit-equal; a sharded
+       evaluate over 64 synthetic frames holds every image once and its
+       COCO AP is within 1e-3 of the single-process evaluation; K1, K2,
+       K3 counted on each rank.
+    3. The train CLI under `torch.distributed.run --nproc_per_node 1`
+       (NCCL): an epoch, then --test-only --resume to the same summary.
+
+    Returns the launch counts by path."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from demonet_tpu_torch.data.coco_eval import CocoEvaluator
+    from demonet_tpu_torch.data.loader import DetectionLoader
+    from demonet_tpu_torch.data.presets import DetectionPresetEval
+    from demonet_tpu_torch.data.synthetic import SyntheticDetection
+    from demonet_tpu_torch.engine.evaluate import evaluate, make_predict_step
+    from demonet_tpu_torch.engine.state import (
+        create_train_state,
+        make_optimizer,
+    )
+    from demonet_tpu_torch.engine.train import make_train_step
+    from demonet_tpu_torch.parallel import data_mesh, initialize
+
+    t0_phase = time.perf_counter()
+    launches = {}
+
+    def fresh_state(mesh=None):
+        det = trained_detector("cuda")
+        state = create_train_state(det, make_optimizer(
+            _TRAIN_LR, _TRAIN_MOMENTUM, _TRAIN_WD))
+        return det, state, make_train_step(det, mesh=mesh)
+
+    def two_steps(batch, mesh=None):
+        det, state, step = fresh_state(mesh)
+        metrics = []
+        for _ in range(2):
+            state, m = step(state, batch)
+            metrics.append(m)
+        torch.cuda.synchronize()
+        return metrics, det.model.state_dict()
+
+    # -- 1. world size 1 over NCCL, in this process ---------------------------
+    batch = train_batch(_DIST_SEED, 2 * _DIST_ROWS, "cuda")
+    local16 = {k: v[:_DIST_ROWS].contiguous() for k, v in batch.items()}
+    initialize(f"tcp://localhost:{free_port()}", 1, 0, backend="nccl",
+               timeout_s=_DIST_TIMEOUT_S)
+    try:
+        mesh = data_mesh()
+        backend_w1 = dist.get_backend()
+        check(backend_w1 == "nccl" and mesh.group is not None
+              and mesh.world_size == 1, f"world 1: {backend_w1}, {mesh}")
+        with cudnn_deterministic():
+            plain_m, plain_s = two_steps(batch)
+            mesh_m, mesh_s = two_steps(batch, mesh)
+        differ = [n for n, v in plain_s.items()
+                  if not torch.equal(v, mesh_s[n])]
+        same_metrics = all(torch.equal(a[k], b[k])
+                           for a, b in zip(plain_m, mesh_m) for k in a)
+        check(same_metrics and not differ,
+              f"world-1 NCCL mesh steps != plain steps: metrics equal "
+              f"{same_metrics}, {len(differ)} state entries differ, e.g. "
+              f"{differ[:3]}")
+        # the mesh step against the plain one at the same 16 rows, in
+        # turns (plain, mesh, plain), and a trace of each
+        det, state, step = fresh_state(mesh)
+        _, p_state, p_step = fresh_state()
+        plain_ms = [step_ms(p_step, p_state, local16, _DIST_TIMED_STEPS)]
+        step_ms_w1 = step_ms(step, state, local16, _DIST_TIMED_STEPS)
+        plain_ms.append(step_ms(p_step, p_state, local16, _DIST_TIMED_STEPS))
+        traces_w1 = {}
+        for name, (fn, st) in (("mesh", (step, state)),
+                               ("plain", (p_step, p_state))):
+            tr = trace_calls(lambda: fn(st, local16))
+            traces_w1[name] = {k: tr[k] for k in (
+                "wall_ms", "device_busy_ms", "device_idle_share")}
+        bucket_w1 = bucket_all_reduce(det.model)
+        del det, state, step, p_state, p_step
+        predict_w1 = {}
+        for mode, kw, k3 in (("reference", {}, 0),
+                             ("sparse_topk", {"topk_impl": "sparse"}, 1)):
+            want = [make_predict_step(trained, **kw)(trained.model, x, sizes)
+                    for x in batches]
+            mesh_step = make_predict_step(trained, mesh=mesh, **kw)
+            torch.cuda.synchronize()
+            reset_counts()
+            got = [mesh_step(trained.model, x, sizes) for x in batches]
+            torch.cuda.synchronize()
+            counts = read_counts()
+            launches[f"distributed/world1_{mode}"] = counts
+            n = len(batches)
+            check(counts["nms_keep_batch"] == n
+                  and counts["gather_rows_batch"] == 2 * n
+                  and counts["topk_sparse"] == k3 * n,
+                  f"world-1 mesh predict ({mode}) launched {counts}")
+            check(all(torch.equal(g[k], w[k]) for g, w in zip(got, want)
+                      for k in w),
+                  f"world-1 mesh predict ({mode}) != the plain predict step")
+            predict_w1[mode] = {"bit_equal": True, "launches": counts}
+    finally:
+        dist.destroy_process_group()
+
+    # -- 2. two processes on the one card -------------------------------------
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(dir=_HERE) as tmp:
+        probe_port = free_port()
+        paths = [os.path.join(tmp, f"probe{r}.json") for r in (0, 1)]
+        codes = run_ranks(_probe_rank, [(r, probe_port, paths[r])
+                                        for r in (0, 1)])
+        probe = [json.load(open(p)) if os.path.exists(p) else
+                 {"rank": r, "ok": False, "error": f"exit code {codes[r]}"}
+                 for r, p in enumerate(paths)]
+        backend = "nccl" if all(p["ok"] for p in probe) else "gloo"
+        port = free_port()
+        outs = [os.path.join(tmp, f"rank{r}.pt") for r in (0, 1)]
+        logs = [os.path.join(os.path.dirname(_DIST_LOG),
+                             f"distributed_rank{r}.log") for r in (0, 1)]
+        t0 = time.perf_counter()
+        codes = run_ranks(_dist_rank, [(r, backend, port, outs[r], logs[r])
+                                       for r in (0, 1)])
+        ranks_s = time.perf_counter() - t0
+        check(codes == [0, 0], f"the two ranks ({backend}) exited {codes}; "
+              f"see chiprun_out/distributed_rank*.log")
+        ranks = [torch.load(p, weights_only=False) for p in outs]
+    check(all(r["backend"] == backend for r in ranks),
+          f"ranks ran {[r['backend'] for r in ranks]}, want {backend}")
+    # the single-process references: the b32 steps, the whole evaluation
+    single_m, single_s = two_steps(batch)
+    single_m = [{k: float(v) for k, v in m.items()} for m in single_m]
+    loss_rel = max(abs(r["metrics"][s][k] - single_m[s][k])
+                   / abs(single_m[s][k]) for r in ranks for s in (0, 1)
+                   for k in single_m[s])
+    # every state entry within 2e-3 of the single-process value
+    state_err, state_worst = max(
+        (float((ranks[0]["state"][n].double() - v.cpu().double()).abs()
+               .max()), n)
+        for n, v in single_s.items() if v.is_floating_point())
+    ranks_equal = all(torch.equal(ranks[0]["state"][n], ranks[1]["state"][n])
+                      for n in ranks[0]["state"])
+    check(loss_rel <= _TRAIN_LOSS_RTOL and state_err <= _TRAIN_STATE_ATOL
+          and ranks_equal and ranks[0]["metrics"] == ranks[1]["metrics"],
+          f"two ranks against the b32 step: loss terms {loss_rel} relative "
+          f"(limit {_TRAIN_LOSS_RTOL}), state {state_err} at {state_worst} "
+          f"(limit {_TRAIN_STATE_ATOL}), ranks bit-equal {ranks_equal}")
+    ds = SyntheticDetection(n=_DIST_FRAMES, num_classes=7, seed=1,
+                            transforms=DetectionPresetEval())
+    with open(_DIST_LOG, "w") as log, contextlib.redirect_stdout(log):
+        single_ev = evaluate(
+            make_predict_step(trained, topk_impl="sparse"), trained.model,
+            DetectionLoader(ds, _DIST_EVAL_BATCH, image_size=(320, 320)),
+            CocoEvaluator(ds.ground_truth_for_eval()))
+    ap_err = max(abs(r["eval_stats"][0] - float(single_ev.stats[0]))
+                 for r in ranks)
+    stats_err = max(abs(a - float(b)) for r in ranks
+                    for a, b in zip(r["eval_stats"], single_ev.stats))
+    check(all(r["merged_images"] == list(range(_DIST_FRAMES)) for r in ranks)
+          and ap_err <= _DIST_AP_ATOL
+          and ranks[0]["eval_stats"] == ranks[1]["eval_stats"],
+          f"sharded evaluation: merged images "
+          f"{[len(r['merged_images']) for r in ranks]}, AP off by {ap_err}")
+    for r, res in enumerate(ranks):
+        c = res["launches"]
+        check(c["nms_keep_batch"] > 0 and c["gather_rows_batch"] > 0
+              and c["topk_sparse"] > 0,
+              f"rank {r}'s sharded evaluation launched {c}: want K1, K2, K3")
+        launches[f"distributed/rank{r}_evaluate"] = {
+            "fused_inverted_residual": 0, **c}
+
+    # -- 3. the train CLI under torch.distributed.run, one process, NCCL ------
+    cli_log = os.path.join(os.path.dirname(_DIST_LOG), "distributed_cli.log")
+    run = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", "1", "-m", "demonet_tpu_torch.train",
+           *_CLI_ARGS]
+    env = dict(os.environ, NCCL_DEBUG="VERSION")
+    cli = {}
+    with tempfile.TemporaryDirectory(dir=_HERE) as tmp, \
+            open(cli_log, "w") as log:
+        for name, argv in (("train", ["--epochs", "1", "--output-dir", tmp]),
+                           ("resume", ["--test-only", "--resume",
+                                       os.path.join(tmp, "checkpoint_0"),
+                                       "--output-dir", tmp])):
+            t0 = time.perf_counter()
+            proc = subprocess.run(run + argv, cwd=_HERE, env=env,
+                                  capture_output=True, text=True,
+                                  timeout=_DIST_JOIN_S)
+            log.write(f"== {name}: exit {proc.returncode}\n{proc.stdout}\n"
+                      f"-- stderr\n{proc.stderr}\n")
+            check(proc.returncode == 0,
+                  f"torch.distributed.run CLI {name} exited "
+                  f"{proc.returncode}; see chiprun_out/distributed_cli.log")
+            cli[name] = {"summary": summary_lines(proc.stdout),
+                         "nccl": "NCCL version" in proc.stdout + proc.stderr,
+                         "seconds": time.perf_counter() - t0}
+    check(len(cli["train"]["summary"]) == 12
+          and cli["resume"]["summary"] == cli["train"]["summary"]
+          and cli["train"]["nccl"],
+          f"torch.distributed.run CLI: summaries {cli}")
+    emit({"phase": "distributed", "model": "ssdlite320_mobilenet_v3_large "
+          "(trained npz), fp32",
+          "world1": {"backend": backend_w1,
+                     "two_mesh_steps_b32_bit_equal_to_plain": True,
+                     "predict": predict_w1,
+                     "step_ms_local_b16": step_ms_w1,
+                     "no_mesh_step_ms_local_b16_before_after": plain_ms,
+                     "trace_local_b16": traces_w1,
+                     "grad_all_reduce": bucket_w1},
+          "world2_one_card": {
+              "nccl_probe": probe, "backend": backend,
+              "rows_per_rank": _DIST_ROWS,
+              "loss_terms_max_rel_vs_b32": loss_rel,
+              "state_max_abs_vs_b32": [state_err, state_worst],
+              "limits": {"loss_rel": _TRAIN_LOSS_RTOL,
+                         "state_abs": _TRAIN_STATE_ATOL},
+              "ranks_bit_equal": ranks_equal,
+              "step_ms_local_b16": [r["step_ms"] for r in ranks],
+              "grad_all_reduce": [r["bucket"] for r in ranks],
+              "eval_frames": _DIST_FRAMES,
+              "eval_ap": ranks[0]["eval_stats"][0],
+              "single_process_ap": float(single_ev.stats[0]),
+              "ap_abs_err": ap_err, "stats_max_abs_err": stats_err,
+              "launches_per_rank": [r["launches"] for r in ranks],
+              "ranks_seconds": ranks_s},
+          "cli_torchrun_nproc1": {
+              "backend": "nccl", "summary_equal_after_resume": True,
+              "seconds": {k: v["seconds"] for k, v in cli.items()},
+              "ap": cli["train"]["summary"][0]},
+          "seconds": time.perf_counter() - t0_phase})
+    return launches
+
+
 def main():
     import torch
 
@@ -4048,6 +4505,9 @@ def main():
           f"the bf16 train steps launched kernels: {read_counts()}")
     launches_by_path.update(bf16_families(reset_counts, read_counts))
     bf16_cli()
+    # -- data parallelism: world 1 over NCCL, two ranks on the card, the CLI
+    launches_by_path.update(distributed(trained, batches, sizes,
+                                        reset_counts, read_counts))
     for r in rows:
         r["launches"] = total_launches(r["name"])
         r["launches_by_path"] = by_path(r["name"])

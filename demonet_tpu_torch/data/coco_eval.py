@@ -19,16 +19,15 @@ implemented from its published semantics:
     all/medium/large ranges, the 10-number keypoint summary
 
 `synchronize_between_processes` returns in a single process. Across
-processes it raises until the port's `parallel/dist.py` has an array
-all-gather (ROADMAP Queue 1 item 10). The JAX package merges detections
-across hosts with a fixed-layout array merge: each host packs its
-detections into one contiguous numeric buffer (i64 header +
-img_ids/counts/boxes/scores/labels [+ keypoints] sections,
-`_pack_detections`, kept here), the buffers ride a padded uint8
-all-gather, and every host unpacks and merges in rank order, with no
-pickle (the reference pickles arbitrary objects into a ByteTensor,
-misc.py:75-115). Repeated image ids from padded sharding de-duplicate
-first-wins (reference coco_eval.py:183-184 keeps unique ids).
+processes it merges detections as the JAX package does, with a
+fixed-layout array merge: each process packs its detections into one
+contiguous numeric buffer (i64 header + img_ids/counts/boxes/scores/
+labels [+ keypoints] sections, `_pack_detections`), the buffers ride a
+padded uint8 all-gather (`parallel.dist.all_gather_arrays`), and every
+process unpacks and merges in rank order, with no pickle (the reference
+pickles arbitrary objects into a ByteTensor, misc.py:75-115). Repeated
+image ids from padded sharding de-duplicate first-wins (reference
+coco_eval.py:183-184 keeps unique ids).
 
 Matching is vectorized: the greedy assignment is sequential in detections
 (each choice consumes ground truths) but independent across the 10 IoU
@@ -43,12 +42,6 @@ from typing import Dict, Iterable, List, Optional, Sequence
 
 import numpy as np
 
-
-def _unported_merge() -> NotImplementedError:
-    return NotImplementedError(
-        "merging evaluator results across processes is not ported yet "
-        "(ROADMAP Queue 1, item 10): the port's parallel/dist.py has no "
-        "all_gather_arrays")
 
 IOU_THRS = np.linspace(0.5, 0.95, 10)
 REC_THRS = np.linspace(0.0, 1.0, 101)
@@ -367,14 +360,28 @@ class CocoEvaluator:
             self.detections.setdefault(img_id, det)
 
     def synchronize_between_processes(self) -> None:
-        """One process: nothing to merge. More: not ported yet (the JAX
-        package merges per-host detection sets with a fixed-layout array
-        all-gather of `_pack_detections` buffers, no pickle)."""
-        from demonet_tpu_torch.parallel.dist import process_count
+        """Merge the processes' detection sets (reference coco_eval.py:
+        52-55, misc.py:75-115, but a fixed-layout array merge, no pickle):
+        every process gets the union, the first occurrence of an image id
+        in rank order kept."""
+        from demonet_tpu_torch.parallel.dist import (
+            all_gather_arrays,
+            process_count,
+        )
 
         if process_count() == 1:
             return
-        raise _unported_merge()
+        payload = _pack_detections(self.detections)
+        sizes = all_gather_arrays(np.asarray(np.int64(len(payload))))
+        buf = np.zeros(int(sizes.max()), np.uint8)
+        buf[:len(payload)] = payload
+        bufs = all_gather_arrays(buf)
+        merged: Dict[int, Dict] = {}
+        for size, b in zip(sizes, bufs):
+            # first wins across ranks, as the reference's de-dup order
+            for img_id, det in _unpack_detections(b[:int(size)]).items():
+                merged.setdefault(img_id, det)
+        self.detections = merged
 
     # ---- core evaluation ----
 

@@ -20,8 +20,6 @@ from typing import Dict, Iterable, List, Optional, Sequence
 
 import numpy as np
 
-from demonet_tpu_torch.data.coco_eval import _unported_merge
-
 
 def voc_ap(rec: np.ndarray, prec: np.ndarray, use_07_metric: bool = False) -> float:
     """AP from recall/precision curves (reference voc_eval.py:29-58)."""
@@ -142,12 +140,29 @@ class VocEvaluator:
             }
 
     def synchronize_between_processes(self) -> None:
-        """One process: nothing to merge. More: not ported yet."""
-        from demonet_tpu_torch.parallel.dist import process_count
+        """Merge the processes' detections as the JAX package does: each
+        process's dict pickled, the bytes all-gathered, and the dicts
+        applied in rank order with `update`, so the last occurrence of an
+        image id wins. The bytes unpickled are those this program's
+        processes wrote."""
+        import pickle
+
+        from demonet_tpu_torch.parallel.dist import (
+            all_gather_arrays,
+            process_count,
+        )
 
         if process_count() == 1:
             return
-        raise _unported_merge()
+        payload = np.frombuffer(pickle.dumps(self._dets), np.uint8)
+        sizes = all_gather_arrays(np.asarray(np.int64(len(payload))))
+        buf = np.zeros(int(sizes.max()), np.uint8)
+        buf[:len(payload)] = payload
+        bufs = all_gather_arrays(buf)
+        merged: Dict[int, Dict] = {}
+        for size, b in zip(sizes, bufs):
+            merged.update(pickle.loads(b[:int(size)].tobytes()))
+        self._dets = merged
 
     def _write_results_files(self, per_class_rows: Dict[str, np.ndarray]):
         """VOCdevkit-style det_test_<cls>.txt files (voc_eval.py:169-211)."""

@@ -24,16 +24,22 @@ from demonet_tpu_torch.models.detection import (
     postprocess_detections,
     preprocess,
 )
+from demonet_tpu_torch.parallel.mesh import check_mesh
 from demonet_tpu_torch.utils.logging import MetricLogger
 
 
 def make_predict_step(
     detector: Detector,
+    mesh: Optional[Any] = None,
     nms_impl: str = "auto",
     topk_impl: str = "exact",
     impl: str = "reference",
 ) -> Callable[..., Dict[str, torch.Tensor]]:
     """(model, images, original_sizes) -> padded detections.
+
+    With a mesh (`parallel.DataMesh`) each rank passes its own rows and
+    gets their detections, as the JAX package's sharded predict step
+    returns each process its rows: prediction needs no communication.
 
     `images` are (B, H, W, 3) at the network size, uint8 or float in
     [0, 1], on the model's device. The anchors are put on that device
@@ -42,6 +48,8 @@ def make_predict_step(
     passes train=False. A bf16 model's head outputs are cast to float32
     before the postprocess, so its detections are float32 too.
     """
+    if mesh is not None:
+        check_mesh(mesh)
     anchors = torch.as_tensor(detector.anchors, device=detector.device)
     config = detector.config
 
@@ -109,11 +117,15 @@ def evaluate(
     takes, or a `TrainState` holding it (the JAX package takes a
     variables tree or a TrainState). Batches are copied to the model's
     device; the images of `batch_valid` False (the loader's padding of
-    the last batch) are dropped. `mesh` (sharded evaluation) is not
-    ported."""
+    the last batch) are dropped.
+
+    With a mesh (`parallel.DataMesh`) each rank evaluates its own rows
+    (its loader shards by process) into its own evaluator; then the
+    meters and the evaluators' detections are merged across the ranks
+    (`synchronize_between_processes`), so every rank summarizes the
+    whole set."""
     if mesh is not None:
-        raise NotImplementedError(
-            "evaluate(mesh=...) is not ported yet (ROADMAP Queue 1, item 10)")
+        check_mesh(mesh)
     if isinstance(model, TrainState):
         model = model.model
     device = next(model.parameters()).device
@@ -138,6 +150,7 @@ def evaluate(
         evaluator_time = time.time() - t0
         logger.update(model_time=model_time, evaluator_time=evaluator_time)
 
+    logger.synchronize_between_processes()
     print("Averaged stats:", logger)
     evaluator.synchronize_between_processes()
     evaluator.accumulate()

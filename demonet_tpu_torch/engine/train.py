@@ -4,7 +4,8 @@ The step runs eagerly: preprocess, forward in train mode, MultiBox loss
 (matching and hard-negative mining on the device), backward, the SGD
 update at the step's learning rate (computed on the host from the host
 step count) and the BN statistics' update, which the train-mode forward
-makes. Nothing in it waits for the device: the metrics come back as
+makes; with a data-parallel mesh, over the global batch of every rank.
+Nothing in it waits for the device: the metrics come back as
 device tensors, and the epoch loop reads them every `print_freq` steps.
 A bfloat16 model (the builders' `dtype`) trains in the same step: its
 float32 parameters get float32 gradients through the casts in its convs.
@@ -18,21 +19,22 @@ import sys
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint
 
 from demonet_tpu_torch.engine.state import TrainState
 from demonet_tpu_torch.models.detection import Detector, to_float
-from demonet_tpu_torch.models.layers import hold_running_stats
+from demonet_tpu_torch.models.layers import (
+    global_batch_stats,
+    hold_running_stats,
+)
 from demonet_tpu_torch.models.losses import multibox_loss
+from demonet_tpu_torch.parallel.mesh import check_mesh, shard_batch
 from demonet_tpu_torch.utils.logging import MetricLogger, SmoothedValue
 
 Batch = Dict[str, Any]
 Metrics = Dict[str, torch.Tensor]
 _KEYS = ("images", "gt_boxes", "gt_labels", "gt_valid")
-
-
-def _unported(what: str, where: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet ({where})")
 
 
 def _remat_contexts():
@@ -71,13 +73,24 @@ def make_train_step(
     train-mode apply: `torch.utils.checkpoint` over the whole model, its
     recompute inside `layers.hold_running_stats()`, so that the BN
     statistics move once a step. It takes steps_per_call > 1 too.
-    `mesh` (the data-parallel mesh) is not ported. `donate` has no meaning
-    here: the state is updated in place, so nothing is copied for it to
-    save.
+    `donate` has no meaning here: the state is updated in place, so
+    nothing is copied for it to save.
+
+    `mesh` (a `parallel.DataMesh`) makes it one step over the global batch,
+    the ranks' batches in rank order, as the JAX package's mesh step: each
+    rank passes its own rows; the train-mode BN takes its statistics over
+    the global batch (`layers.global_batch_stats`, re-issued in the remat
+    recompute), the loss divides by the global positive count, and after
+    the backward one flat SUM all-reduce carries the gradients and the
+    loss terms, so that every rank applies the gradient of the global
+    loss (the sum over ranks, not DDP's mean) and returns the global
+    metrics. Every rank holds the same state after it. A mesh of one
+    process with no process group communicates nothing.
     """
-    if mesh is not None:
-        raise _unported("make_train_step(mesh=...)", "ROADMAP Queue 1, item 10")
     del donate
+    group = None
+    if mesh is not None:
+        group = check_mesh(mesh).group
     device = detector.device
     config = detector.config
     anchors = torch.as_tensor(detector.anchors, dtype=torch.float32,
@@ -99,28 +112,34 @@ def make_train_step(
         images = b["images"]
         if normalize_in_step:
             images = (to_float(images) - mean) / std
-        if remat:
-            outputs = checkpoint(model, images, use_reentrant=False,
-                                 context_fn=_remat_contexts)
-        else:
-            outputs = model(images)
-        _mark(on_phase, "forward")
-        losses = multibox_loss(
-            outputs["cls_logits"], outputs["bbox_regression"], anchors,
-            b["gt_boxes"], b["gt_labels"], b["gt_valid"],
-            iou_thresh=config.iou_thresh,
-            neg_to_pos_ratio=config.neg_to_pos_ratio,
-            box_coder_weights=config.box_coder_weights)
-        total = losses["bbox_regression"] + losses["classification"]
-        _mark(on_phase, "loss")
-        model.zero_grad(set_to_none=True)
-        total.backward()
+        with global_batch_stats(group):
+            if remat:
+                outputs = checkpoint(model, images, use_reentrant=False,
+                                     context_fn=_remat_contexts)
+            else:
+                outputs = model(images)
+            _mark(on_phase, "forward")
+            losses = multibox_loss(
+                outputs["cls_logits"], outputs["bbox_regression"], anchors,
+                b["gt_boxes"], b["gt_labels"], b["gt_valid"],
+                iou_thresh=config.iou_thresh,
+                neg_to_pos_ratio=config.neg_to_pos_ratio,
+                box_coder_weights=config.box_coder_weights, group=group)
+            total = losses["bbox_regression"] + losses["classification"]
+            _mark(on_phase, "loss")
+            model.zero_grad(set_to_none=True)
+            total.backward()
         _mark(on_phase, "backward")
+        metrics = {k: v.detach() for k, v in losses.items()}
+        if group is not None:
+            metrics = _all_reduce_grads(model, metrics, group)
+            metrics["loss"] = (metrics["bbox_regression"]
+                               + metrics["classification"])
+        else:
+            metrics["loss"] = total.detach()
         state.optimizer.step_at(state.step)
         state.step += 1
         _mark(on_phase, "optimizer")
-        metrics = {k: v.detach() for k, v in losses.items()}
-        metrics["loss"] = total.detach()
         return state, metrics
 
     if steps_per_call == 1:
@@ -136,6 +155,25 @@ def make_train_step(
         return state, {k: torch.stack([m[k] for m in rows]) for k in rows[0]}
 
     return multi
+
+
+def _all_reduce_grads(model: torch.nn.Module, metrics: Metrics, group
+                      ) -> Metrics:
+    """One SUM all-reduce of every gradient and the metrics, flattened
+    into one buffer of the gradients' dtype (one bucket); the gradients
+    are written back in place. Returns the summed metrics in their own
+    dtypes."""
+    grads = [p.grad for p in model.parameters() if p.grad is not None]
+    keys = list(metrics)
+    flat = torch.cat([g.reshape(-1) for g in grads]
+                     + [torch.stack([metrics[k].to(grads[0].dtype)
+                                     for k in keys])])
+    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+    for g, part in zip(grads, flat.split([g.numel() for g in grads]
+                                         + [len(keys)])):
+        g.copy_(part.view_as(g))
+    summed = flat[-len(keys):]
+    return {k: summed[i].to(metrics[k].dtype) for i, k in enumerate(keys)}
 
 
 def train_one_epoch(
@@ -161,9 +199,15 @@ def train_one_epoch(
     steps. The metrics writer (anything with `write(step, metrics)`) gets
     every step, with its learning rate, and is flushed at the end of the
     epoch where it has a `flush()`.
+
+    With a mesh (`parallel.DataMesh`), each batch or window is this rank's
+    rows (`shard_batch`) and the steps are mesh steps: their metrics are
+    the global ones on every rank, so every rank stops at the same step
+    on a non-finite loss (a rank that stopped alone would leave the
+    others waiting in a collective).
     """
     if mesh is not None:
-        raise _unported("train_one_epoch(mesh=...)", "ROADMAP Queue 1, item 10")
+        check_mesh(mesh)
     logger = MetricLogger(delimiter="  ")
     logger.add_meter("lr", SmoothedValue(window_size=1, fmt="{value:.6f}"))
     header = f"Epoch: [{epoch}]"
@@ -200,11 +244,15 @@ def train_one_epoch(
         if len(window) == k and k > 1:
             stacked = {key: torch.stack([torch.as_tensor(b[key])
                                          for b in window]) for key in _KEYS}
+            if mesh is not None:
+                stacked = shard_batch(stacked, mesh, axis=1)
             state, metrics = multi_step(state, stacked)
             pending.append((list(range(step0 + 1, step0 + 1 + k)), metrics))
             step0 += k
         else:  # single steps: k == 1, or the epoch's short tail
             for b in window:
+                if mesh is not None:
+                    b = shard_batch({key: b[key] for key in _KEYS}, mesh)
                 state, metrics = train_step(state, b)
                 step0 += 1
                 pending.append(([step0], metrics))

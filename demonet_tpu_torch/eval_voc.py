@@ -10,11 +10,14 @@ Batched inference over VOC2007 test through `make_predict_step` (on the
 card: the NMS and row-gather kernels), the VOCdevkit detection files
 (det_test_<cls>.txt) under --results-dir if given, and the per-class AP
 and mean AP, VOC07 11-point metric by default (reference eval_voc.py:
-50-96). One process: the loader's shard is this process's rank of
-`parallel.dist`; the JAX CLI's data mesh waits for ROADMAP Queue 1 item
-10. The flags are the JAX CLI's, plus `--device` (`cuda` by default;
-with no GPU it raises unless asked for `cpu`). `main` returns the
-evaluator (`aps` holds the per-class APs and the mAP).
+50-96). Under a launcher (`python -m torch.distributed.run
+--nproc_per_node N -m demonet_tpu_torch.eval_voc ...`) the processes
+join one group (NCCL on the GPU, gloo with `--device cpu`), each
+evaluates its shard of the images, and the detections are merged before
+the APs, as the JAX CLI's data mesh does. The flags are the JAX CLI's,
+plus `--device` (`cuda` by default; with no GPU it raises unless asked
+for `cpu`). `main` returns the evaluator (`aps` holds the per-class APs
+and the mAP).
 """
 
 from __future__ import annotations
@@ -59,9 +62,17 @@ def main(args):
     from demonet_tpu_torch.data.voc_eval import VocEvaluator
     from demonet_tpu_torch.engine.evaluate import evaluate, make_predict_step
     from demonet_tpu_torch.models.builders import get_model, resolve_device
-    from demonet_tpu_torch.parallel.dist import process_count, process_index
+    from demonet_tpu_torch.parallel import (
+        data_mesh,
+        initialize,
+        process_count,
+        process_index,
+    )
 
     device = resolve_device(None if args.device == "cuda" else args.device)
+    initialize(backend="gloo" if device.type == "cpu" else None)
+    mesh = data_mesh([device])
+    device = mesh.device
     dataset = VOCDetection(
         args.data_path, args.year, args.image_set, DetectionPresetEval())
     size = (args.image_size, args.image_size)
@@ -86,9 +97,16 @@ def main(args):
     evaluator = VocEvaluator(
         dataset, use_07_metric=args.use_07_metric,
         output_dir=args.results_dir or None)
-    predict_step = make_predict_step(detector, impl=args.postprocess)
-    return evaluate(predict_step, detector.model, loader, evaluator)
+    predict_step = make_predict_step(detector, mesh=mesh,
+                                     impl=args.postprocess)
+    return evaluate(predict_step, detector.model, loader, evaluator,
+                    mesh=mesh)
 
 
 if __name__ == "__main__":
-    main(get_args_parser().parse_args())
+    from demonet_tpu_torch.parallel.dist import leave
+
+    try:
+        main(get_args_parser().parse_args())
+    finally:
+        leave()

@@ -38,6 +38,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from demonet_tpu_torch.parallel.dist import all_reduce_sum
+
 Act = Optional[Callable[[torch.Tensor], torch.Tensor]]
 
 
@@ -132,6 +134,27 @@ def hold_running_stats() -> Iterator[None]:
         _HOLD_STATS[0] -= 1
 
 
+# The process group whose ranks share train-mode BN statistics, set by
+# `global_batch_stats` (None: each BN sees its own batch). A global, as
+# `_HOLD_STATS`, so that a recompute on autograd's thread sees it too.
+_STATS_GROUP = [None]
+
+
+@contextlib.contextmanager
+def global_batch_stats(group) -> Iterator[None]:
+    """Train-mode BatchNorm inside the block takes its statistics over the
+    global batch of a data-parallel step: the ranks' per-channel sums of
+    x and x^2 and their counts go through one SUM all-reduce over `group`
+    (forward and backward), as the JAX package's BatchNorm does over the
+    whole batch of its SPMD step. Every rank must run the same modules in
+    the same order inside it."""
+    prev, _STATS_GROUP[0] = _STATS_GROUP[0], group
+    try:
+        yield
+    finally:
+        _STATS_GROUP[0] = prev
+
+
 class BatchNorm(nn.BatchNorm2d):
     """BatchNorm over NCHW with the JAX package's rule.
 
@@ -152,8 +175,11 @@ class BatchNorm(nn.BatchNorm2d):
       * running = decay * running + (1 - decay) * batch, decay = 1 -
         momentum, in the JAX package's order of operations.
 
-    Inside `hold_running_stats()` the running statistics stay as they
-    are. `num_batches_tracked` is kept for the state_dict's sake and not
+    The batch statistics are the per-channel sums of x and x^2 over the
+    count of values, in at least float32; inside `global_batch_stats(group)`
+    the sums and counts are those of every rank of the group. Inside
+    `hold_running_stats()` the running statistics stay as they are.
+    `num_batches_tracked` is kept for the state_dict's sake and not
     counted.
     """
 
@@ -166,9 +192,17 @@ class BatchNorm(nn.BatchNorm2d):
             return super().forward(x)
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
         if self.training:
-            dims = (0, 2, 3)
-            mean = xf.mean(dims)
-            var = ((xf * xf).mean(dims) - mean * mean).clamp(min=0.0)
+            dims, c = (0, 2, 3), xf.shape[1]
+            # one vector [sum x, sum x^2, count], reduced whole across
+            # ranks; the count as a tensor either way, so that one rank's
+            # division is the same operation as a process's alone
+            stats = torch.cat([xf.sum(dims), (xf * xf).sum(dims),
+                               xf.new_full((1,), xf.numel() // c)])
+            if _STATS_GROUP[0] is not None:
+                stats = all_reduce_sum(stats, _STATS_GROUP[0])
+            moments = stats[:2 * c] / stats[2 * c]
+            mean = moments[:c]
+            var = (moments[c:] - mean * mean).clamp(min=0.0)
             if not _HOLD_STATS[0]:
                 decay = 1.0 - self.momentum
                 with torch.no_grad():

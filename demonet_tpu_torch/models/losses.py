@@ -35,6 +35,7 @@ import torch
 
 from demonet_tpu_torch.models.matcher import ssd_match
 from demonet_tpu_torch.ops.boxes import box_iou, encode_boxes
+from demonet_tpu_torch.parallel.dist import all_reduce_sum
 
 
 def smooth_l1(x: torch.Tensor, beta: float = 1.0) -> torch.Tensor:
@@ -116,6 +117,7 @@ def multibox_loss(
     neg_to_pos_ratio: float = 3.0,
     box_coder_weights: Tuple[float, float, float, float] = (10.0, 10.0, 5.0,
                                                            5.0),
+    group=None,
 ) -> Dict[str, torch.Tensor]:
     """The SSD MultiBox loss over a padded batch.
 
@@ -126,6 +128,11 @@ def multibox_loss(
       gt_boxes: (B, G, 4) xyxy, zero-padded; gt_labels: (B, G) int,
         zero-padded; gt_valid: (B, G) bool.
       matched_idxs: optional precomputed (B, A) matching.
+      group: the process group of a data-parallel step (None: this batch
+        alone). N is then the positive count of the global batch (one SUM
+        all-reduce, cast to the logits' dtype after it), and the terms
+        are this rank's sums over N: the global loss is their sum over
+        the ranks.
 
     Returns {'bbox_regression', 'classification'}: 0-d tensors on the
     logits' device.
@@ -135,7 +142,10 @@ def multibox_loss(
     b, a, _ = cls_logits.shape
     ce, fg, bg = classification_terms(cls_logits, matched_idxs, gt_labels,
                                       neg_to_pos_ratio)
-    n = fg.sum().clamp(min=1).to(cls_logits.dtype)
+    positives = fg.sum()
+    if group is not None:
+        positives = all_reduce_sum(positives, group)
+    n = positives.clamp(min=1).to(cls_logits.dtype)
 
     # the regression targets in float32 from the gt boxes rounded to the
     # logits' dtype, as the JAX package's one-hot product makes them

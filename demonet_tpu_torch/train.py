@@ -10,6 +10,9 @@ CPU:
         --output-dir out/ --device cpu
     python -m demonet_tpu_torch.train --dataset synthetic --test-only \
         --resume out/checkpoint_0 --device cpu
+    python -m torch.distributed.run --standalone --nproc_per_node 2 \
+        -m demonet_tpu_torch.train --dataset synthetic --epochs 1 \
+        --output-dir out/ --device cpu
 
 `--model` takes each of the five detectors (`models/builders.DETECTORS`),
 and the frames take the model's own input size; a classifier's name
@@ -18,8 +21,14 @@ the classifier's missing `config`. The flags and defaults are the JAX
 CLI's, plus `--device`. Defaults
 mirror the reference recipe: lr 0.02, SGD momentum 0.9, weight decay
 1e-4, epochs 26, MultiStepLR [16, 22] gamma 0.1, linear warmup 1000 iters
-(train.py:59-75, engine.py:21-25). One process on one device: the JAX
-CLI's data mesh and multi-host bootstrap wait for ROADMAP Queue 1 item 10.
+(train.py:59-75, engine.py:21-25). Under a launcher (torchrun's RANK,
+WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT) the processes join one
+group, NCCL on the GPU (each rank on `cuda:LOCAL_RANK`) and gloo with
+`--device cpu`, and train data-parallel as the JAX CLI's data mesh does:
+each rank's loader yields `--batch-size` rows of its shard, a step's
+batch is every rank's rows, the state is replicated from rank 0, and
+rank 0 alone writes checkpoints and metrics. Without a launcher it is
+one process.
 `--pretrained` and `--torch-weights` load a checkpoint in the reference's
 torch layout (`utils.pretrained`, `utils.torch_weights`) before
 `--npz-weights` applies; `--tensorboard` adds TensorBoard scalars where
@@ -54,7 +63,8 @@ def get_args_parser(add_help: bool = True) -> argparse.ArgumentParser:
     parser.add_argument("--num-classes", default=None, type=int,
                         help="default: 91 for coco, 21 for voc")
     parser.add_argument("--batch-size", "-b", default=16, type=int,
-                        help="batch size")
+                        help="batch size of each process (the step's "
+                             "batch is every process's rows)")
     parser.add_argument("--epochs", default=26, type=int)
     parser.add_argument("--lr", default=0.02, type=float)
     parser.add_argument("--momentum", default=0.9, type=float)
@@ -206,10 +216,13 @@ def main(args):
         get_model,
         resolve_device,
     )
-    from demonet_tpu_torch.parallel.dist import (
+    from demonet_tpu_torch.parallel import (
+        data_mesh,
+        initialize,
         is_main_process,
         process_count,
         process_index,
+        replicate,
     )
     from demonet_tpu_torch.utils.checkpoints import (
         load_checkpoint,
@@ -219,9 +232,12 @@ def main(args):
     if args.model not in DETECTORS:
         raise ValueError(f"--model {args.model!r} is not a detector; the "
                          f"train CLI trains {', '.join(DETECTORS)}")
-    print(args)
     # `cuda` with no GPU raises, rather than falling back to the CPU
     device = resolve_device(None if args.device == "cuda" else args.device)
+    initialize(backend="gloo" if device.type == "cpu" else None)
+    print(args)
+    mesh = data_mesh([device])
+    device = mesh.device
 
     ds_train, ds_val, default_classes = build_datasets(args)
     num_classes = args.num_classes or default_classes
@@ -285,17 +301,19 @@ def main(args):
         state, epoch, _ = load_checkpoint(args.resume, state)
         start_epoch = epoch + 1
         print(f"resumed from {args.resume} at epoch {start_epoch}")
+    replicate(state, mesh)
 
-    train_step = make_train_step(detector, remat=args.remat)
+    train_step = make_train_step(detector, mesh=mesh, remat=args.remat)
     spc = max(1, getattr(args, "steps_per_call", 1))
     multi_step = make_train_step(
-        detector, remat=args.remat, steps_per_call=spc) if spc > 1 else None
+        detector, mesh=mesh, remat=args.remat,
+        steps_per_call=spc) if spc > 1 else None
     predict_step = make_predict_step(
-        detector, impl=getattr(args, "postprocess", "reference"))
+        detector, mesh=mesh, impl=getattr(args, "postprocess", "reference"))
 
     if args.test_only:
         return evaluate(predict_step, state, val_loader,
-                        make_evaluator(args, ds_val))
+                        make_evaluator(args, ds_val), mesh=mesh)
 
     from demonet_tpu_torch.utils.metrics_writer import MetricsWriter
 
@@ -313,14 +331,14 @@ def main(args):
         train_loader.set_epoch(epoch)
         state = train_one_epoch(
             train_step, state, train_loader, epoch,
-            print_freq=args.print_freq, lr_schedule=schedule,
+            print_freq=args.print_freq, lr_schedule=schedule, mesh=mesh,
             metrics_writer=writer, multi_step=multi_step,
             steps_per_call=spc)
         if args.output_dir:
             save_checkpoint(args.output_dir, state, epoch,
                             metadata={"args": vars(args)})
         evaluator = evaluate(predict_step, state, val_loader,
-                             make_evaluator(args, ds_val))
+                             make_evaluator(args, ds_val), mesh=mesh)
 
     total = time.time() - start
     if is_main_process():
@@ -329,4 +347,9 @@ def main(args):
 
 
 if __name__ == "__main__":
-    main(get_args_parser().parse_args())
+    from demonet_tpu_torch.parallel.dist import leave
+
+    try:
+        main(get_args_parser().parse_args())
+    finally:
+        leave()

@@ -7,7 +7,7 @@ one `torch.save` file, `state.pt`, in place of orbax's tree: the model's
 state_dict (parameters and BN statistics), the optimizer's (momentum
 buffers and learning rate) and the step. Only rank 0 writes, and the
 file is written under another name and renamed, so a reader never sees
-half of one. A bf16 model keeps float32 parameters, statistics and
+half of one; the other ranks wait for it at a barrier. A bf16 model keeps float32 parameters, statistics and
 momentum, so its checkpoint is a float32 one: it resumes into a float32
 model and the reverse, as in the JAX package.
 """
@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from demonet_tpu_torch.engine.state import TrainState
-from demonet_tpu_torch.parallel.dist import is_main_process
+from demonet_tpu_torch.parallel.dist import is_main_process, sync_devices
 
 _STATE = "state.pt"
 
@@ -34,18 +34,19 @@ def save_checkpoint(
     metadata: Optional[Dict] = None,
 ) -> str:
     """Write checkpoint_<epoch>/ under output_dir (rank 0 only); returns
-    its path on every rank."""
+    its path on every rank, once it is written (every rank waits for rank
+    0 at a barrier, so none reads it back early)."""
     path = os.path.join(os.path.abspath(output_dir), f"checkpoint_{epoch}")
-    if not is_main_process():
-        return path
-    os.makedirs(path, exist_ok=True)
-    tmp = os.path.join(path, _STATE + ".tmp")
-    torch.save({"model": state.model.state_dict(),
-                "optimizer": state.optimizer.state_dict(),
-                "step": state.step}, tmp)
-    os.replace(tmp, os.path.join(path, _STATE))
-    with open(path + ".meta.json", "w") as f:
-        json.dump({"epoch": epoch, "metadata": metadata or {}}, f)
+    if is_main_process():
+        os.makedirs(path, exist_ok=True)
+        tmp = os.path.join(path, _STATE + ".tmp")
+        torch.save({"model": state.model.state_dict(),
+                    "optimizer": state.optimizer.state_dict(),
+                    "step": state.step}, tmp)
+        os.replace(tmp, os.path.join(path, _STATE))
+        with open(path + ".meta.json", "w") as f:
+            json.dump({"epoch": epoch, "metadata": metadata or {}}, f)
+    sync_devices("checkpoint")
     return path
 
 

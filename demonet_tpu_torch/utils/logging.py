@@ -1,8 +1,8 @@
 """Console logging of training (counterpart of demonet_tpu/utils/logging.py):
 smoothed meters and the iteration logger with ETA, iteration and data
-times and the device's peak memory.
-
-The meters' cross-process reduction waits for the distributed slice.
+times and the device's peak memory. `synchronize_between_processes` sums
+each meter's count and total over the processes (the global averages),
+as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -15,7 +15,11 @@ from typing import Iterable, Optional
 import numpy as np
 import torch
 
-from demonet_tpu_torch.parallel.dist import is_main_process
+from demonet_tpu_torch.parallel.dist import (
+    all_gather_arrays,
+    is_main_process,
+    process_count,
+)
 
 
 class SmoothedValue:
@@ -34,6 +38,16 @@ class SmoothedValue:
         self.deque.append(value)
         self.count += n
         self.total += value * n
+
+    def synchronize_between_processes(self):
+        """Sum count and total across processes, in float64 (the window
+        stays this process's own)."""
+        if process_count() == 1:
+            return
+        agg = all_gather_arrays(
+            np.asarray([self.count, self.total], np.float64)).sum(axis=0)
+        self.count = int(agg[0])
+        self.total = float(agg[1])
 
     @property
     def median(self) -> float:
@@ -89,6 +103,12 @@ class MetricLogger:
     def __str__(self):
         return self.delimiter.join(
             f"{name}: {meter}" for name, meter in self.meters.items())
+
+    def synchronize_between_processes(self):
+        """Every meter's count and total summed across processes (every
+        process must hold the same meters, in the same order)."""
+        for meter in self.meters.values():
+            meter.synchronize_between_processes()
 
     def add_meter(self, name: str, meter: SmoothedValue):
         self.meters[name] = meter

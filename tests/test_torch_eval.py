@@ -184,15 +184,62 @@ def test_voc_ap_equals_jax():
 
 
 def test_evaluators_raise_across_processes(monkeypatch):
+    """The merges across processes, in one process: `all_gather_arrays`
+    stands in for two ranks whose other rank holds `other`'s detections
+    (image 0 on both, with other detections). COCO keeps the first
+    occurrence in rank order, VOC the last, as the JAX merges do; every
+    other image is merged once. (The name is that of the test this one
+    replaced, which asserted that the merges raised.)"""
     from demonet_tpu_torch.parallel import dist
 
-    gts, _ = _boxes_case(np.random.default_rng(0))
-    evs = (port_coco_eval.CocoEvaluator(gts),
-           port_voc_eval.VocEvaluator(_VocSet(np.random.default_rng(1))))
-    monkeypatch.setattr(dist, "process_count", lambda: 2)
-    for ev in evs:
-        with pytest.raises(NotImplementedError, match="item 10"):
+    rng = np.random.default_rng(0)
+    gts, dets = _boxes_case(rng)
+    mine, other = dets[:6], dets[6:] + [dict(dets[3], image_id=0)]
+    gathers = []
+
+    def two_ranks(x):
+        """Rank 0 is this process; rank 1 gives the same call's array
+        made by a twin evaluator that holds `other`."""
+        gathers.append(x)
+        theirs = twin_calls[len(gathers) - 1]
+        width = max(np.asarray(x).size, np.asarray(theirs).size)
+        if np.asarray(x).ndim == 0:
+            return np.stack([x, theirs])
+        pad = [np.pad(a, (0, width - a.size)) for a in (x, theirs)]
+        return np.stack(pad)
+
+    def recorded_calls(ev, results):
+        """The arrays that `ev`, holding `results`, passes to
+        all_gather_arrays, in order."""
+        calls = []
+        ev.update(results)
+        with monkeypatch.context() as m:
+            m.setattr(dist, "process_count", lambda: 2)
+            m.setattr(dist, "all_gather_arrays",
+                      lambda x: calls.append(x) or np.stack([x, x]))
             ev.synchronize_between_processes()
+        return calls
+
+    voc_set = _VocSet(np.random.default_rng(1))
+    for make, first_wins in (
+            (lambda: port_coco_eval.CocoEvaluator(gts), True),
+            (lambda: port_voc_eval.VocEvaluator(voc_set), False)):
+        twin_calls = recorded_calls(make(), other)
+        gathers.clear()
+        ev = make()
+        ev.update(mine)
+        monkeypatch.setattr(dist, "process_count", lambda: 2)
+        monkeypatch.setattr(dist, "all_gather_arrays", two_ranks)
+        ev.synchronize_between_processes()
+        monkeypatch.undo()
+        merged = ev.detections if first_wins else ev._dets
+        assert len(gathers) == 2            # the sizes, then the bytes
+        assert sorted(merged) == sorted({d["image_id"] for d in dets})
+        want0 = dets[0] if first_wins else dets[3]
+        np.testing.assert_array_equal(merged[0]["scores"], want0["scores"])
+        for d in dets[1:]:
+            np.testing.assert_array_equal(merged[d["image_id"]]["scores"],
+                                          d["scores"])
 
 
 # ---------- detections_to_numpy and evaluate ----------
@@ -299,5 +346,5 @@ def test_evaluate_equals_jax_with_one_stub_step(image_dtype, capsys):
                 np.testing.assert_array_equal(g[k], w[k])
     assert reads == [4, 4, 4] * 2
     assert want.stats[1] > 0.5          # the stub finds rectangles
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(TypeError, match="DataMesh"):
         port_evaluate.evaluate(port_step, model, [], None, mesh=object())

@@ -374,13 +374,21 @@ def test_train_one_epoch_stops_on_non_finite_loss(ref, capsys):
 
 
 def test_unported_options_raise(ref):
+    """The mesh is ported (tests/test_torch_dist_train.py); its 2-D
+    (data, model) form is not (item 10b), and a mesh that is not a
+    DataMesh is refused."""
+    from demonet_tpu_torch.parallel import data_mesh
+
     pd = _port(ref["variables"])
     make_train_step(pd, remat=True)         # ported: tests/test_torch_remat.py
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(NotImplementedError, match="10b"):
+        data_mesh([torch.device("cpu")], model_axis=2)
+    with pytest.raises(TypeError, match="DataMesh"):
         make_train_step(pd, mesh=object())
     state = create_train_state(pd, _sgd())
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="DataMesh"):
         train_one_epoch(make_train_step(pd), state, [], 0, mesh=object())
+    make_train_step(pd, mesh=data_mesh([torch.device("cpu")]))
     make_train_step(pd, donate=False)       # accepted, and means nothing
 
 
