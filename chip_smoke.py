@@ -74,7 +74,9 @@ package. The script prints one JSON line per phase:
                card against the CPU (B = 2, 1e-3, before the class head
                is scaled); K3 (k = 400), K1 (K = 400) and K2 on the
                model's own rows against their plain versions, bit-equal,
-               and timed; closed-loop img/s at b32 and b128 with the
+               and timed (the final gather of K2 also at 3x the
+               iterations, with the L2 warm and flushed before each
+               call); closed-loop img/s at b32 and b128 with the
                forward/postprocess split (and the forward with cuDNN's
                benchmark mode, beside the default heuristics; VGG's
                atrous fc6 conv timed alone), a trace of the reference
@@ -165,6 +167,17 @@ package. The script prints one JSON line per phase:
                at world 1 and 2 (16 rows a rank), the gradient bucket's
                all-reduce ms and bytes; the ranks' and the CLI's printing
                go to chiprun_out/distributed*.log
+  export       the torch.export artifacts (demonet_tpu_torch/export/),
+               each exported, saved, loaded back and run: the trained
+               flagship in the reference and fused modes at b1 and b32 on
+               the e2e frames (4 requests), detections bit-equal to the
+               eager predict step, K1 and K2 launched inside the program
+               1 and 2 times a batch and K3 never, the fused program's
+               branch per batch (the K of its NMS launch); export s,
+               artifact MB, ms per batch of the artifact beside the eager
+               step, in turns; the random-weight flagship's fused program
+               (the fallback); the raw heads at b1; the four other
+               detectors in the reference mode at b1; bf16 at b32
   launch_floor the device time of a one-float fill, the shortest kernel
 
 then `previous_design` (K1's, K3's and K4's times before their
@@ -289,11 +302,20 @@ def device_ms(fn, iters, flush=None):
                for e in kernels) / 1e3
 
 
-def timed(fn, iters, warmup=2):
-    """{'ms': device time (event time if the profiler saw none),
-    'event_ms': CUDA-event time}."""
+def timed(fn, iters, warmup=2, traces=3):
+    """{'ms': device time (event time if none of `traces` profiler traces
+    held a kernel of fn), 'event_ms': CUDA-event time}. The profiler on
+    the card's machine drops a short kernel from a trace now and then,
+    and the event time of a kernel shorter than a call's host time is the
+    host's issue rate (a K2 gather of 0.0014 ms on the device has read
+    0.0377 ms so), so a trace is taken again before the events stand
+    in."""
     ev = cuda_ms(fn, iters, warmup)
-    dev = device_ms(fn, iters)
+    dev = None
+    for _ in range(traces):
+        dev = device_ms(fn, iters)
+        if dev is not None:
+            break
     return {"ms": dev if dev is not None else ev, "event_ms": ev,
             "ms_from": "profiler" if dev is not None else "events"}
 
@@ -385,7 +407,8 @@ def fused_shapes(det, cand, r):
     scores, all_boxes = cand["scores"], cand["boxes"]
     b, a, _ = scores.shape
     off, nms_sc, boxes, _ = detection._fused_candidates(
-        scores, all_boxes, det.config, r, "auto")
+        scores, all_boxes, det.config,
+        detection._fused_sizes(scores.shape, det.config), r, "auto")
     order = torch.sort(cand["fg"].reshape(b, -1), dim=1, descending=True,
                        stable=True)[1][:, :r]
     cand_idx = (order % a).to(torch.int32).contiguous()
@@ -509,6 +532,22 @@ def block_bound(nbytes, products, rest):
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bound_fp32_fma_ms": bound(nbytes, products + rest)[0],
             "bytes": nbytes, "products": products, "rest_ops": rest}
+
+
+def gather_retimed(table, idx, iters=150):
+    """K2 timed again on (table, idx), at 3x gather_row's 50 iterations
+    in the families phase: with the L2 as the loop leaves it, and with it
+    flushed before each call (cold_timed), to tell a slow timer from a
+    slow kernel."""
+    import torch
+
+    from demonet_tpu_torch.ops.gather import gather_rows_batch
+
+    flush = torch.empty(_FLUSH_BYTES // 4, device=table.device)
+    warm = timed(lambda: gather_rows_batch(table, idx), iters)
+    cold = cold_timed(lambda: gather_rows_batch(table, idx), iters,
+                      flush.zero_)
+    return {"iters": iters, "warm": warm, "l2_flushed": cold}
 
 
 def cold_timed(fn, iters, flush):
@@ -1721,6 +1760,7 @@ def families(reset_counts, read_counts):
             "ms_from": t_k["ms_from"]}
         calls = {gname: gather_row(table, idx, 50)
                  for gname, (table, idx) in g_cases.items()}
+        calls["final"]["retimed"] = gather_retimed(*g_cases["final"])
         kernels["gather_rows_batch"][name] = {
             **{key: sum(cl[key] for cl in calls.values())
                for key in ("ms", "plain_ms", "library_ms", "bound_ms")},
@@ -3701,6 +3741,273 @@ def distributed(trained, batches, sizes, reset_counts, read_counts):
     return launches
 
 
+# closed-loop batches timed per side in `export`, at b1 and at the e2e batch
+_EXPORT_ITERS = {"b1": 30, "batch": 20}
+
+
+def same_outputs(got, want):
+    """Every output of two runs equal: keys, shapes, dtypes and bits."""
+    import torch
+
+    return got.keys() == want.keys() and all(
+        got[k].dtype == want[k].dtype and torch.equal(got[k], want[k])
+        for k in want)
+
+
+def export_artifacts(trained, random_init, batches, reset_counts,
+                     read_counts):
+    """export: the torch.export artifacts (`demonet_tpu_torch.export`) on
+    the card, each exported, saved to disk, loaded back and run:
+
+      * the trained flagship (91 classes, 320x320) in the reference and
+        fused modes at b1 and b32, on the `e2e` frames (4 requests at b32;
+        the first frame of each at b1): detections bit-equal to the eager
+        `make_predict_step` in the same mode; K1 and K2 launched inside the
+        program 1 and 2 times a batch, K3 never (counts reset before and
+        read after the 4 requests); the fused program's branch on each
+        batch, read from the K of its NMS launch (K = 300: the reference
+        fallback, K = R: tier R); export s, artifact MB, ms per batch
+        (median, q1-q3) of the artifact beside the eager step, the two
+        timed in turns;
+      * the random-weight flagship's fused program at b32 on one batch:
+        every score is live, so it must take the fallback;
+      * the trained flagship's raw heads at b1: bit-equal to the eager
+        model's;
+      * the four other detectors (family_detectors' weights) in the
+        reference mode at b1, 4 requests each;
+      * the trained flagship with bf16 compute at b32, reference mode.
+
+    Where a program's detections differ from eager's, both run again
+    under cudnn_deterministic(); the line says whether that was needed.
+    No fallback: a kernel that fails inside a program fails the run.
+    Returns the launches by path ('export/...')."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from demonet_tpu_torch.engine.evaluate import make_predict_step
+    from demonet_tpu_torch.export import (
+        export_detector,
+        load_exported,
+        save_exported,
+    )
+    from demonet_tpu_torch.models.detection import preprocess, to_float
+    from demonet_tpu_torch.ops.nms import nms_keep_batch
+
+    t0 = time.perf_counter()
+    launches_by_path = {}
+    frames = [to_float(x) for x in batches]
+    b_e2e = frames[0].shape[0]
+
+    def artifact(det, tmp, name, **kwargs):
+        """(the reloaded program, export s, save + load s, MB)."""
+        t = time.perf_counter()
+        exported = export_detector(det, **kwargs)
+        export_s = time.perf_counter() - t
+        path = os.path.join(tmp, f"{name}.pt2")
+        t = time.perf_counter()
+        save_exported(exported, path)
+        program = load_exported(path).module()
+        return (program, export_s, time.perf_counter() - t,
+                os.path.getsize(path) / 1e6)
+
+    def drive(program, xs):
+        """The program on each request, counts reset just before and read
+        just after; the K of each batch's NMS launch."""
+        with torch.no_grad():
+            program(xs[0])                         # warm-up, not counted
+            torch.cuda.synchronize()
+            reset_counts()
+            nms_keep_batch.launches_by_k.clear()
+            outs, ks = [], []
+            for x in xs:
+                before = dict(nms_keep_batch.launches_by_k)
+                outs.append(program(x))
+                ks.extend(k for k in nms_keep_batch.launches_by_k
+                          if nms_keep_batch.launches_by_k[k]
+                          != before.get(k, 0))
+            torch.cuda.synchronize()
+        return outs, read_counts(), ks
+
+    def compare(program, step, det, xs):
+        """Bit-equality of the program's detections with the eager step's
+        on every request; again under cudnn_deterministic() if they
+        differ. Returns (outs, counts, ks, deterministic_needed)."""
+        outs, counts, ks = drive(program, xs)
+        wants = [step(det.model, x) for x in xs]
+        if all(same_outputs(o, w) for o, w in zip(outs, wants)):
+            return outs, counts, ks, False
+        with cudnn_deterministic():
+            outs, counts, ks = drive(program, xs)
+            wants = [step(det.model, x) for x in xs]
+        check(all(same_outputs(o, w) for o, w in zip(outs, wants)),
+              "an exported program's detections != the eager step's, also "
+              "under cudnn_deterministic()")
+        return outs, counts, ks, True
+
+    def want_counts(n):
+        return {"nms_keep_batch": n, "gather_rows_batch": 2 * n,
+                "topk_sparse": 0, "fused_inverted_residual": 0,
+                "topk_sparse_long": 0}
+
+    def in_turns(program, step, det, x, iters):
+        """ms per batch of the program and of the eager step, closed loop,
+        one call of each in turn."""
+        with torch.no_grad():
+            for _ in range(3):
+                program(x)
+                step(det.model, x)
+        torch.cuda.synchronize()
+        per = {"artifact": [], "eager": []}
+        for _ in range(iters):
+            for side, fn in (("artifact", lambda: program(x)),
+                             ("eager", lambda: step(det.model, x))):
+                t = time.perf_counter()
+                with torch.no_grad():
+                    fn()
+                torch.cuda.synchronize()
+                per[side].append((time.perf_counter() - t) * 1e3)
+        out = {}
+        for side, ms in per.items():
+            q1, med, q3 = np.percentile(ms, [25, 50, 75])
+            out[side] = {"ms_per_batch_median": med,
+                         "ms_per_batch_q1_q3": [q1, q3], "n": iters}
+        return out
+
+    # the reference pipeline's K: min(topk_candidates, A)
+    k_ref = min(trained.config.topk_candidates, len(trained.anchors))
+
+    def branch_of(k):
+        return "fallback" if k == k_ref else f"tier_{k}"
+
+    with tempfile.TemporaryDirectory(dir=_HERE) as tmp:
+        # -- the trained flagship, both modes, b1 and b32 -------------------
+        for mode in ("reference", "fused"):
+            step = make_predict_step(trained, impl=mode)
+            for b in (1, b_e2e):
+                xs = frames if b == b_e2e else [f[:1] for f in frames]
+                program, export_s, io_s, mb = artifact(
+                    trained, tmp, f"{mode}_b{b}", batch_size=b,
+                    postprocess_impl=mode)
+                outs, counts, ks, det_needed = compare(program, step,
+                                                       trained, xs)
+                check(counts == want_counts(len(xs)),
+                      f"export {mode} b{b}: launches {counts}, want 1 NMS "
+                      "and 2 gathers a batch inside the program, no top-k")
+                check(len(ks) == len(xs) and (mode == "fused"
+                                              or set(ks) == {k_ref}),
+                      f"export {mode} b{b}: NMS launches at K {ks}")
+                path = f"export/{mode}_b{b}"
+                launches_by_path[path] = counts
+                emit({"phase": "export", "artifact": path,
+                      "batch": b, "requests": len(xs), "export_s": export_s,
+                      "save_load_s": io_s, "artifact_mb": mb,
+                      "launches": counts, "bit_equal_to_eager": True,
+                      "cudnn_deterministic_needed": det_needed,
+                      **({"branches": [branch_of(k) for k in ks]}
+                         if mode == "fused" else {}),
+                      "valid_detections": [int(o["valid"].sum())
+                                           for o in outs],
+                      "timing": in_turns(program, step, trained, xs[0],
+                                         _EXPORT_ITERS["b1" if b == 1
+                                                       else "batch"]),
+                      "t_s": time.perf_counter() - _T0})
+                del program
+
+        # -- the random-weight flagship's fused program: the fallback -------
+        step = make_predict_step(random_init, impl="fused")
+        program, export_s, io_s, mb = artifact(
+            random_init, tmp, "fused_random", batch_size=b_e2e,
+            postprocess_impl="fused")
+        _, counts, ks, det_needed = compare(program, step, random_init,
+                                            frames[:1])
+        check(counts == want_counts(1) and ks == [k_ref],
+              f"random-weight fused program: launches {counts}, NMS at K "
+              f"{ks}, want the fallback (K = {k_ref})")
+        launches_by_path[f"export/fused_random_b{b_e2e}"] = counts
+        emit({"phase": "export", "artifact": f"export/fused_random_b{b_e2e}",
+              "weights": "seeded random (every score live)",
+              "export_s": export_s, "artifact_mb": mb, "launches": counts,
+              "branches": [branch_of(k) for k in ks],
+              "bit_equal_to_eager": True,
+              "cudnn_deterministic_needed": det_needed})
+        del program
+
+        # -- raw heads at b1 -------------------------------------------------
+        program, export_s, io_s, mb = artifact(trained, tmp, "raw_b1",
+                                               with_postprocess=False)
+        cfg = trained.config
+        reset_counts()
+        with torch.no_grad():
+            got = [program(f[:1]) for f in frames]
+        counts = read_counts()
+        with torch.inference_mode():
+            want = [trained.model(preprocess(f[:1], cfg, resize=False))
+                    for f in frames]
+        det_needed = not all(same_outputs(g, w) for g, w in zip(got, want))
+        if det_needed:
+            with cudnn_deterministic(), torch.no_grad():
+                got = [program(f[:1]) for f in frames]
+                want = [trained.model(preprocess(f[:1], cfg, resize=False))
+                        for f in frames]
+        check(all(same_outputs(g, w) for g, w in zip(got, want))
+              and not any(counts.values()),
+              f"raw-heads program != the eager model's heads, or launched "
+              f"kernels {counts}")
+        emit({"phase": "export", "artifact": "export/raw_b1",
+              "export_s": export_s, "artifact_mb": mb,
+              "outputs": {k: list(v.shape) for k, v in got[0].items()},
+              "bit_equal_to_eager": True,
+              "cudnn_deterministic_needed": det_needed, "launches": counts})
+        del program
+
+        # -- the other four detectors, reference mode, b1 ----------------
+        for fi, name in enumerate(_FAMILIES):
+            det, _ = family_detectors(name)
+            peak_class_head(det)
+            size = det.config.size[0]
+            rng = np.random.default_rng(300 + fi)
+            xs = [to_float(torch.from_numpy(
+                shapes_images(rng, 1, size)[0]).cuda()) for _ in range(4)]
+            step = make_predict_step(det)
+            program, export_s, io_s, mb = artifact(det, tmp, name)
+            outs, counts, ks, det_needed = compare(program, step, det, xs)
+            check(counts == want_counts(len(xs)),
+                  f"export {name}: launches {counts}")
+            path = f"export/{name}_reference_b1"
+            launches_by_path[path] = counts
+            emit({"phase": "export", "artifact": path, "export_s": export_s,
+                  "save_load_s": io_s, "artifact_mb": mb,
+                  "launches": counts, "bit_equal_to_eager": True,
+                  "cudnn_deterministic_needed": det_needed,
+                  "valid_detections": [int(o["valid"].sum()) for o in outs],
+                  "t_s": time.perf_counter() - _T0})
+            del program, det
+
+        # -- bf16 compute, b32 ---------------------------------------------
+        det = trained_detector("cuda", dtype=torch.bfloat16)
+        step = make_predict_step(det)
+        program, export_s, io_s, mb = artifact(det, tmp, "bf16",
+                                               batch_size=b_e2e)
+        outs, counts, ks, det_needed = compare(program, step, det, frames)
+        check(counts == want_counts(len(frames)),
+              f"export bf16: launches {counts}")
+        path = f"export/bf16_reference_b{b_e2e}"
+        launches_by_path[path] = counts
+        emit({"phase": "export", "artifact": path,
+              "export_s": export_s, "save_load_s": io_s, "artifact_mb": mb,
+              "launches": counts, "bit_equal_to_eager": True,
+              "cudnn_deterministic_needed": det_needed,
+              "valid_detections": [int(o["valid"].sum()) for o in outs],
+              "timing": in_turns(program, step, det, frames[0],
+                                 _EXPORT_ITERS["batch"])})
+        del program, det
+    emit({"phase": "export_done", "seconds": time.perf_counter() - t0,
+          "t_s": time.perf_counter() - _T0})
+    return launches_by_path
+
+
 def main():
     import torch
 
@@ -3787,6 +4094,7 @@ def main():
         for fn in counters.values():
             fn.launches = 0
         topk_sparse.long_launches = 0
+        nms_keep_batch.launches_by_k.clear()
         branches.clear()
 
     def read_counts():
@@ -4508,6 +4816,9 @@ def main():
     # -- data parallelism: world 1 over NCCL, two ranks on the card, the CLI
     launches_by_path.update(distributed(trained, batches, sizes,
                                         reset_counts, read_counts))
+    # -- torch.export artifacts: K1 and K2 inside the exported programs ----
+    launches_by_path.update(export_artifacts(trained, random_init, batches,
+                                             reset_counts, read_counts))
     for r in rows:
         r["launches"] = total_launches(r["name"])
         r["launches_by_path"] = by_path(r["name"])

@@ -33,7 +33,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -248,8 +248,8 @@ def _select_candidates(scores: torch.Tensor, boxes: torch.Tensor,
         boxes, top_idx.reshape(b, -1), gather_impl).reshape(b, c - 1, k, 4)
     # score-threshold filter, strict >
     cand_sc = torch.where(top_sc > config.score_thresh, top_sc,
-                          torch.tensor(_NEG_INF, dtype=top_sc.dtype,
-                                       device=top_sc.device))
+                          torch.full((), _NEG_INF, dtype=top_sc.dtype,
+                                     device=top_sc.device))
     return cand_boxes, cand_sc
 
 
@@ -268,7 +268,7 @@ def _postprocess_reference_core(
     cand_boxes, cand_sc = _select_candidates(scores, boxes, config, topk_impl,
                                              gather_impl)
     k = cand_sc.shape[-1]
-    neg = torch.tensor(_NEG_INF, dtype=cand_sc.dtype, device=cand_sc.device)
+    neg = torch.full((), _NEG_INF, dtype=cand_sc.dtype, device=cand_sc.device)
 
     keep = _nms_keep(
         cand_boxes.reshape(b * (c - 1), k, 4),
@@ -330,51 +330,81 @@ _FUSED_TIERS = (1024, 2048)
 _FUSED_SLOTS = 192
 
 
-def _fused_capacity(scores: torch.Tensor, config: SSDConfig) -> Optional[int]:
-    """The fused path's guards for one batch of (B, A, C) scores.
+class _FusedSizes(NamedTuple):
+    """The fused path's static sizes for (B, A, C) scores: Python ints
+    from the config and the shapes, computed once outside any branch."""
 
-    Returns the smallest tier R that holds every image's live count (the
-    scores above score_thresh), or None when the batch must take the
-    reference pipeline: some image holds more than the largest tier, or
-    its live entries span more than the chunk budget. Two numbers,
-    (max_live, chunk_bad), come back to the host: the one device-to-host
-    sync of the fused path, in place of the JAX `lax.switch`.
-    """
-    b, a, c = scores.shape
+    b: int
+    a: int
+    c: int
+    n: int          # (C - 1) * A entries of an image's flattened row
+    n_chunks: int   # 128-wide chunks of that row
+    slots: int      # chunks the path gathers
+    cap: int        # the per-class topk_candidates cap
+    tiers: Tuple[int, ...]
+
+
+def _fused_sizes(shape: Tuple[int, int, int], config: SSDConfig
+                 ) -> _FusedSizes:
+    b, a, c = (int(v) for v in shape)
     n = (c - 1) * a
     n_chunks = -(-n // 128)
     slots = min(_FUSED_SLOTS, n_chunks)
-    tiers = sorted({min(max(t, config.detections_per_img), n, slots * 128)
-                    for t in _FUSED_TIERS})
-    live = (scores[..., 1:].transpose(1, 2) > config.score_thresh).reshape(b, n)
-    chunk_has = F.pad(live, (0, n_chunks * 128 - n)).reshape(
-        b, n_chunks, 128).any(dim=2)
-    max_live, chunk_bad = torch.stack([
-        live.sum(dim=1).amax(),
-        (chunk_has.sum(dim=1) > slots).any().long()]).tolist()
+    tiers = tuple(sorted({min(max(t, config.detections_per_img), n,
+                              slots * 128) for t in _FUSED_TIERS}))
+    return _FusedSizes(b, a, c, n, n_chunks, slots,
+                       min(config.topk_candidates, a), tiers)
+
+
+def _fused_guards(scores: torch.Tensor, config: SSDConfig, sz: _FusedSizes
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The fused path's guards on the device: the largest live count of
+    an image (the scores above score_thresh), and whether some image's
+    live entries span more than the chunk budget."""
+    live = (scores[..., 1:].transpose(1, 2) > config.score_thresh).reshape(
+        sz.b, sz.n)
+    chunk_has = F.pad(live, (0, sz.n_chunks * 128 - sz.n)).reshape(
+        sz.b, sz.n_chunks, 128).any(dim=2)
+    return live.sum(dim=1).amax(), (chunk_has.sum(dim=1) > sz.slots).any()
+
+
+def _fused_capacity(scores: torch.Tensor, config: SSDConfig) -> Optional[int]:
+    """The fused path's guards for one batch of (B, A, C) scores, read on
+    the host.
+
+    Returns the smallest tier R that holds every image's live count, or
+    None when the batch must take the reference pipeline: some image
+    holds more than the largest tier, or its live entries span more than
+    the chunk budget. Two numbers, (max_live, chunk_bad), come back to the
+    host: the one device-to-host sync of the eager fused path, in place
+    of the JAX `lax.switch`.
+    """
+    sz = _fused_sizes(scores.shape, config)
+    max_live, chunk_bad = _fused_guards(scores, config, sz)
+    max_live, chunk_bad = torch.stack([max_live,
+                                       chunk_bad.long()]).tolist()
     if chunk_bad:
         return None
-    return next((t for t in tiers if max_live <= t), None)
+    return next((t for t in sz.tiers if max_live <= t), None)
 
 
 def _fused_candidates(scores: torch.Tensor, all_boxes: torch.Tensor,
-                      config: SSDConfig, r: int, gather_impl: str
+                      config: SSDConfig, sz: _FusedSizes, r: int,
+                      gather_impl: str
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                                  torch.Tensor]:
     """The top r live entries of each image, as one NMS problem per image.
 
     Returns the class-offset boxes (B, r, 4) and scores (B, r) of the NMS
     problem (dead and capped entries at -1e30), the candidates' own boxes
-    (B, r, 4) and their 0-based foreground classes (B, r).
+    (B, r, 4) and their 0-based foreground classes (B, r). Its sizes
+    come from `sz`, computed once for the batch.
     """
-    b, a, c = scores.shape
-    n = (c - 1) * a
-    n_chunks = -(-n // 128)
+    b, a, n, n_chunks, slots, cap = sz.b, sz.a, sz.n, sz.n_chunks, \
+        sz.slots, sz.cap
     n_pad = n_chunks * 128
-    slots = min(_FUSED_SLOTS, n_chunks)
-    cap = min(config.topk_candidates, a)
     dev = scores.device
-    neg = torch.tensor(_NEG_INF, dtype=scores.dtype, device=dev)
+    neg = torch.full((), _NEG_INF, dtype=scores.dtype, device=dev)
 
     fg = scores[..., 1:].transpose(1, 2)                  # (B, C-1, A)
     flat = torch.where(fg > config.score_thresh, fg, neg).reshape(b, n)
@@ -445,11 +475,20 @@ def _postprocess_fused(
          so the keep set is the reference's class-wise one;
       5. top detections_per_img of the kept scores and the final gather.
 
-    The JAX `lax.switch` over the tiers becomes one host read per batch
-    in `_fused_capacity`: the branch is chosen in Python. Each batch
-    counts one in `_postprocess_fused.branches` under 'tier_<R>' or
-    'fallback'. Either branch launches one NMS and two gathers.
+    The JAX `lax.switch` over the tiers (detection.py:502-523) becomes,
+    in eager use, one host read per batch in `_fused_capacity`: the
+    branch is chosen in Python, and each batch counts one in
+    `_postprocess_fused.branches` under 'tier_<R>' or 'fallback'. Under
+    `torch.export` (`torch.compiler.is_compiling()`) the guards stay on
+    the device and nested `torch.cond`s choose the branch inside the
+    program (`_fused_switch`); nothing is counted. Either branch launches
+    one NMS and two gathers.
     """
+    sz = _fused_sizes(scores.shape, config)
+    if torch.compiler.is_compiling():
+        out = _fused_switch(scores, all_boxes, config, sz, nms_impl,
+                            gather_impl)
+        return _pad_and_rescale(*out, config, original_sizes)
     r = _fused_capacity(scores, config)
     counts = _postprocess_fused.branches
     if r is None:
@@ -458,10 +497,21 @@ def _postprocess_fused(
             scores, all_boxes, config, original_sizes, nms_impl, "exact",
             gather_impl)
     counts[f"tier_{r}"] += 1
-    off, nms_sc, boxes, cls = _fused_candidates(scores, all_boxes, config, r,
-                                                gather_impl)
+    return _pad_and_rescale(
+        *_fused_tier(scores, all_boxes, config, sz, r, nms_impl,
+                     gather_impl), config, original_sizes)
+
+
+def _fused_tier(scores: torch.Tensor, all_boxes: torch.Tensor,
+                config: SSDConfig, sz: _FusedSizes, r: int, nms_impl: str,
+                gather_impl: str) -> Tuple[torch.Tensor, ...]:
+    """Steps 2-5 of the fused path at capacity r: the detections (boxes,
+    scores, labels, valid), min(detections_per_img, r) of them an image,
+    before padding and rescaling."""
+    off, nms_sc, boxes, cls = _fused_candidates(scores, all_boxes, config,
+                                                sz, r, gather_impl)
     keep = _nms_keep(off, nms_sc, config, nms_impl)       # (B, R)
-    neg = torch.tensor(_NEG_INF, dtype=nms_sc.dtype, device=nms_sc.device)
+    neg = torch.full((), _NEG_INF, dtype=nms_sc.dtype, device=nms_sc.device)
     out_sc, oidx = _sorted_topk(torch.where(keep, nms_sc, neg),
                                 min(config.detections_per_img, r))
     valid_out = out_sc > _NEG_INF / 2
@@ -471,8 +521,47 @@ def _postprocess_fused(
     out_labels = torch.where(valid_out, torch.gather(cls, 1, oidx) + 1,
                              0).to(torch.int32)
     out_scores = torch.where(valid_out, out_sc, zero)
-    return _pad_and_rescale(out_boxes, out_scores, out_labels, valid_out,
-                            config, original_sizes)
+    return out_boxes, out_scores, out_labels, valid_out
+
+
+def _fused_switch(scores: torch.Tensor, all_boxes: torch.Tensor,
+                  config: SSDConfig, sz: _FusedSizes, nms_impl: str,
+                  gather_impl: str) -> Tuple[torch.Tensor, ...]:
+    """The fused path's branch chosen on the device, for `torch.export`:
+    nested `torch.cond`s over the tiers, smallest first, and the
+    reference pipeline, as the JAX `lax.switch` chooses. Each branch
+    returns the padded detections (boxes, scores, labels, valid), not
+    rescaled; the sizes it needs are Python ints closed over from `sz`."""
+    max_live, chunk_bad = _fused_guards(scores, config, sz)
+    d = config.detections_per_img
+
+    def static(sc, bx):
+        # views of the operands at their static shapes: `torch.cond`
+        # traces its branches with symbolic operand sizes
+        return sc.reshape(sz.b, sz.a, sz.c), bx.reshape(sz.b, sz.a, 4)
+
+    def fallback(sc, bx):
+        out = _postprocess_reference_core(*static(sc, bx), config, None,
+                                          nms_impl, "exact", gather_impl)
+        return out["boxes"], out["scores"], out["labels"], out["valid"]
+
+    def tier(r):
+        def branch(sc, bx):
+            out = _fused_tier(*static(sc, bx), config, sz, r, nms_impl,
+                              gather_impl)
+            if r >= d:
+                return out
+            return tuple(_pad_and_rescale(*out, config, None).values())
+        return branch
+
+    def choose(i):
+        if i == len(sz.tiers):
+            return fallback
+        return lambda sc, bx: torch.cond(max_live <= sz.tiers[i],
+                                         tier(sz.tiers[i]), choose(i + 1),
+                                         (sc, bx))
+
+    return torch.cond(chunk_bad, fallback, choose(0), (scores, all_boxes))
 
 
 _postprocess_fused.branches = collections.Counter()

@@ -4,10 +4,11 @@ demonet_tpu/models/detection.py::_gather_rows).
 
 `gather_rows_batch` is the wrapper of the hand-written CUDA kernel
 `csrc/gather.cu`, with the contract of the TPU kernel
-demonet_tpu/ops/gather_pallas.py::gather_rows_batch. On a CUDA tensor it
-launches the kernel; on a CPU tensor it runs `gather_rows_batch_plain`
-(`torch.gather`). Both copy bits, so both are bit-equal to
-`jnp.take_along_axis`.
+demonet_tpu/ops/gather_pallas.py::gather_rows_batch. It calls the custom
+op `demonet_tpu_torch::gather_rows_batch` (`ops/library.py`): on a CUDA
+tensor the op launches the kernel; on a CPU tensor it runs
+`gather_rows_batch_plain` (`torch.gather`). Both copy bits, so both are
+bit-equal to `jnp.take_along_axis`.
 """
 
 from __future__ import annotations
@@ -38,33 +39,11 @@ def _kernel():
     return fn
 
 
-def gather_rows_batch(table: torch.Tensor, idx: torch.Tensor,
-                      coord_major: bool = False) -> torch.Tensor:
-    """Batched exact row gather: out[b, r] = table[b, idx[b, r]].
-
-    Args:
-      table: (B, N, 4) float32.
-      idx: (B, R) int32 in [0, N). Not range-checked, as on the TPU: a
-        check would synchronize the host with the device.
-      coord_major: return (B, 4, R) instead of (B, R, 4).
-
-    A CUDA tensor goes to the kernel `csrc/gather.cu` (and counts one in
-    `gather_rows_batch.launches`); a CPU tensor to `gather_rows_batch_plain`.
-    """
-    if table.ndim != 3 or table.shape[-1] != 4 or idx.ndim != 2 \
-            or idx.shape[0] != table.shape[0]:
-        raise ValueError(f"gather_rows_batch: table {tuple(table.shape)} and "
-                         f"idx {tuple(idx.shape)} are not (B, N, 4) and (B, R)")
-    if table.dtype != torch.float32 or idx.dtype != torch.int32:
-        raise TypeError("gather_rows_batch takes a float32 table and int32 "
-                        f"indices, got {table.dtype} and {idx.dtype}")
-    if table.device != idx.device:
-        raise ValueError(f"gather_rows_batch: table on {table.device}, idx "
-                         f"on {idx.device}")
-    if table.device.type == "cpu":
-        return gather_rows_batch_plain(table, idx, coord_major)
-    if table.device.type != "cuda":
-        raise ValueError(f"gather_rows_batch: no kernel for {table.device}")
+def gather_rows_batch_cuda(table: torch.Tensor, idx: torch.Tensor,
+                           coord_major: bool) -> torch.Tensor:
+    """The launch of `csrc/gather.cu`: the CUDA implementation of the op
+    `demonet_tpu_torch::gather_rows_batch` (`ops/library.py`). Counts one
+    in `gather_rows_batch.launches`, inside an exported program too."""
     if not (table.is_contiguous() and idx.is_contiguous()):
         raise ValueError("gather_rows_batch: table and idx must be contiguous")
     if table.data_ptr() % 16:
@@ -80,6 +59,38 @@ def gather_rows_batch(table: torch.Tensor, idx: torch.Tensor,
     _build.check(code, "gather_rows_batch")
     gather_rows_batch.launches += 1
     return out
+
+
+def gather_rows_batch(table: torch.Tensor, idx: torch.Tensor,
+                      coord_major: bool = False) -> torch.Tensor:
+    """Batched exact row gather: out[b, r] = table[b, idx[b, r]].
+
+    Args:
+      table: (B, N, 4) float32.
+      idx: (B, R) int32 in [0, N). Not range-checked, as on the TPU: a
+        check would synchronize the host with the device.
+      coord_major: return (B, 4, R) instead of (B, R, 4).
+
+    It calls the op `demonet_tpu_torch::gather_rows_batch`
+    (`ops/library.py`): a CUDA tensor goes to the kernel `csrc/gather.cu`
+    (`gather_rows_batch_cuda`, contiguous tensors only; counts one in
+    `gather_rows_batch.launches`), a CPU tensor to
+    `gather_rows_batch_plain`.
+    """
+    if table.ndim != 3 or table.shape[-1] != 4 or idx.ndim != 2 \
+            or idx.shape[0] != table.shape[0]:
+        raise ValueError(f"gather_rows_batch: table {tuple(table.shape)} and "
+                         f"idx {tuple(idx.shape)} are not (B, N, 4) and (B, R)")
+    if table.dtype != torch.float32 or idx.dtype != torch.int32:
+        raise TypeError("gather_rows_batch takes a float32 table and int32 "
+                        f"indices, got {table.dtype} and {idx.dtype}")
+    if table.device != idx.device:
+        raise ValueError(f"gather_rows_batch: table on {table.device}, idx "
+                         f"on {idx.device}")
+    if table.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"gather_rows_batch: no kernel for {table.device}")
+    return torch.ops.demonet_tpu_torch.gather_rows_batch(table, idx,
+                                                         bool(coord_major))
 
 
 gather_rows_batch.launches = 0

@@ -3,10 +3,12 @@
 
 `nms_keep_batch` is the wrapper of the hand-written CUDA kernel
 `csrc/nms.cu`, with the contract of the TPU kernel
-demonet_tpu/ops/nms_pallas.py::nms_keep_batch. On a CUDA tensor it
-launches the kernel; on a CPU tensor it runs `nms_keep_batch_plain`, the
-plain PyTorch version of the same function, which the tests hold bit for
-bit against the JAX reference `jax.vmap(nms_mask)`.
+demonet_tpu/ops/nms_pallas.py::nms_keep_batch. It calls the custom op
+`demonet_tpu_torch::nms_keep_batch` (`ops/library.py`), whose CUDA
+implementation launches the kernel (`nms_keep_batch_cuda`) and whose CPU
+implementation is `nms_keep_batch_plain`, the plain PyTorch version of
+the same function, which the tests hold bit for bit against the JAX
+reference `jax.vmap(nms_mask)`.
 
 The kernel works on an IoU bitmask (bit j of row i: j > i overlaps i)
 swept in score order. It has three launch shapes, all exact: "block"
@@ -39,6 +41,7 @@ candidate is suppressed on a strict `iou > iou_threshold`.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 from typing import Tuple
@@ -111,35 +114,13 @@ def scratch_bytes(p: int, k: int) -> int:
     return p * k * -(-k // WORD) * 8
 
 
-def nms_keep_batch(boxes: torch.Tensor, scores: torch.Tensor,
-                   iou_threshold: float,
-                   score_threshold: float) -> torch.Tensor:
-    """Greedy NMS keep mask over a batch of independent problems.
-
-    Args:
-      boxes: (P, K, 4) float32 xyxy, score-sorted descending per problem.
-      scores: (P, K) float32; entries <= score_threshold are padding.
-
-    Returns (P, K) bool. A CUDA tensor goes to the kernel `csrc/nms.cu`,
-    in the launch shape `launch_shape(K)`, and counts one in
-    `nms_keep_batch.launches`; a CPU tensor to `nms_keep_batch_plain`.
-    """
-    if boxes.ndim != 3 or boxes.shape[-1] != 4 \
-            or scores.shape != boxes.shape[:2]:
-        raise ValueError(f"nms_keep_batch: boxes {tuple(boxes.shape)} and "
-                         f"scores {tuple(scores.shape)} are not (P, K, 4) "
-                         "and (P, K)")
-    if boxes.dtype != torch.float32 or scores.dtype != torch.float32:
-        raise TypeError("nms_keep_batch takes float32 boxes and scores, got "
-                        f"{boxes.dtype} and {scores.dtype}")
-    if boxes.device != scores.device:
-        raise ValueError(f"nms_keep_batch: boxes on {boxes.device}, scores "
-                         f"on {scores.device}")
-    if boxes.device.type == "cpu":
-        return nms_keep_batch_plain(boxes, scores, iou_threshold,
-                                    score_threshold)
-    if boxes.device.type != "cuda":
-        raise ValueError(f"nms_keep_batch: no kernel for {boxes.device}")
+def nms_keep_batch_cuda(boxes: torch.Tensor, scores: torch.Tensor,
+                        iou_threshold: float,
+                        score_threshold: float) -> torch.Tensor:
+    """The launch of `csrc/nms.cu`: the CUDA implementation of the op
+    `demonet_tpu_torch::nms_keep_batch` (`ops/library.py`). Counts one in
+    `nms_keep_batch.launches` and in `nms_keep_batch.launches_by_k[K]`,
+    inside an exported program too."""
     if not (boxes.is_contiguous() and scores.is_contiguous()):
         raise ValueError("nms_keep_batch: boxes and scores must be contiguous")
     if boxes.data_ptr() % 16:
@@ -165,10 +146,45 @@ def nms_keep_batch(boxes: torch.Tensor, scores: torch.Tensor,
                          _LAUNCH[shape], stream)
     _build.check(code, "nms_keep_batch")
     nms_keep_batch.launches += 1
+    nms_keep_batch.launches_by_k[k] += 1
     return keep
 
 
+def nms_keep_batch(boxes: torch.Tensor, scores: torch.Tensor,
+                   iou_threshold: float,
+                   score_threshold: float) -> torch.Tensor:
+    """Greedy NMS keep mask over a batch of independent problems.
+
+    Args:
+      boxes: (P, K, 4) float32 xyxy, score-sorted descending per problem.
+      scores: (P, K) float32; entries <= score_threshold are padding.
+
+    Returns (P, K) bool. It calls the op `demonet_tpu_torch::nms_keep_batch`
+    (`ops/library.py`): a CUDA tensor goes to the kernel `csrc/nms.cu`
+    (`nms_keep_batch_cuda`, contiguous tensors only), in the launch shape
+    `launch_shape(K)`, and counts one in `nms_keep_batch.launches`; a CPU
+    tensor to `nms_keep_batch_plain`. Under `torch.export` the op is one
+    node of the program.
+    """
+    if boxes.ndim != 3 or boxes.shape[-1] != 4 \
+            or scores.shape != boxes.shape[:2]:
+        raise ValueError(f"nms_keep_batch: boxes {tuple(boxes.shape)} and "
+                         f"scores {tuple(scores.shape)} are not (P, K, 4) "
+                         "and (P, K)")
+    if boxes.dtype != torch.float32 or scores.dtype != torch.float32:
+        raise TypeError("nms_keep_batch takes float32 boxes and scores, got "
+                        f"{boxes.dtype} and {scores.dtype}")
+    if boxes.device != scores.device:
+        raise ValueError(f"nms_keep_batch: boxes on {boxes.device}, scores "
+                         f"on {scores.device}")
+    if boxes.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"nms_keep_batch: no kernel for {boxes.device}")
+    return torch.ops.demonet_tpu_torch.nms_keep_batch(
+        boxes, scores, float(iou_threshold), float(score_threshold))
+
+
 nms_keep_batch.launches = 0
+nms_keep_batch.launches_by_k = collections.Counter()
 
 
 # scores at or below this are padding in the public API (the JAX default)

@@ -3,9 +3,10 @@ demonet_tpu/ops/topk_pallas.py).
 
 `topk_sparse` is the wrapper of the hand-written CUDA kernel
 `csrc/topk.cu`, which replaces the TPU kernel
-demonet_tpu/ops/topk_pallas.py::topk_sparse. On a CUDA tensor it launches
-the kernel; on a CPU tensor it runs `topk_sparse_plain`, the plain PyTorch
-version of the same function.
+demonet_tpu/ops/topk_pallas.py::topk_sparse. It calls the custom op
+`demonet_tpu_torch::topk_sparse` (`ops/library.py`): on a CUDA tensor the
+op launches the kernel; on a CPU tensor it runs `topk_sparse_plain`, the
+plain PyTorch version of the same function.
 
 Output contract, per row of the last axis:
   * every entry with score > thresh is bit-equal to a stable descending
@@ -51,15 +52,15 @@ MAX_ROW = 4096
 
 def topk_sparse_plain(scores: torch.Tensor, k: int,
                       thresh: float) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(..., A) float32 -> (..., k) float32 scores and int32 indices:
-    a stable descending sort of the masked row, padding rewritten to
-    (-inf, 0)."""
+    """(..., A) float32 -> (..., k) float32 scores and int32 indices,
+    contiguous: a stable descending sort of the masked row, padding
+    rewritten to (-inf, 0)."""
     neg = torch.tensor(float("-inf"), dtype=scores.dtype, device=scores.device)
     masked = torch.where(scores > thresh, scores, neg)
     values, idx = torch.sort(masked, dim=-1, descending=True, stable=True)
-    values, idx = values[..., :k], idx[..., :k]
+    values = values[..., :k].contiguous()   # the kernel's layout
     live = values > thresh
-    return values, torch.where(live, idx, 0).to(torch.int32)
+    return values, torch.where(live, idx[..., :k], 0).to(torch.int32)
 
 
 @functools.lru_cache(maxsize=None)
@@ -84,11 +85,12 @@ def topk_sparse(scores: torch.Tensor, k: int, thresh: float,
       slots: 128-wide chunks the kernel's compact branch holds; a row
         with more live chunks takes the radix select.
 
-    Returns (..., k) float32 scores and (..., k) int32 indices. A CUDA
-    tensor goes to the kernel `csrc/topk.cu` (and counts one in
-    `topk_sparse.launches`; rows over MAX_ROW take its long-row launch
-    and count one in `topk_sparse.long_launches` too); a CPU tensor to
-    `topk_sparse_plain`.
+    Returns (..., k) float32 scores and (..., k) int32 indices. It calls
+    the op `demonet_tpu_torch::topk_sparse` (`ops/library.py`): a CUDA
+    tensor goes to the kernel `csrc/topk.cu` (`topk_sparse_cuda`,
+    contiguous rows only; counts one in `topk_sparse.launches`; rows over
+    MAX_ROW take its long-row launch and count one in
+    `topk_sparse.long_launches` too); a CPU tensor to `topk_sparse_plain`.
     """
     if scores.ndim < 1:
         raise ValueError("topk_sparse: scores must have a last axis")
@@ -100,12 +102,20 @@ def topk_sparse(scores: torch.Tensor, k: int, thresh: float,
                          "raise slots")
     if not 1 <= k <= a:
         raise ValueError(f"topk_sparse: k={k} outside [1, A={a}]")
-    if scores.device.type == "cpu":
-        return topk_sparse_plain(scores, k, thresh)
-    if scores.device.type != "cuda":
+    if scores.device.type not in ("cpu", "cuda"):
         raise ValueError(f"topk_sparse: no kernel for {scores.device}")
+    return torch.ops.demonet_tpu_torch.topk_sparse(scores, k, float(thresh),
+                                                   slots)
+
+
+def topk_sparse_cuda(scores: torch.Tensor, k: int, thresh: float,
+                     slots: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The launch of `csrc/topk.cu`: the CUDA implementation of the op
+    `demonet_tpu_torch::topk_sparse` (`ops/library.py`). Counts one in
+    `topk_sparse.launches` (and `long_launches` for rows over MAX_ROW)."""
     if not scores.is_contiguous():
         raise ValueError("topk_sparse: scores must be contiguous")
+    a = scores.shape[-1]
     lead = scores.shape[:-1]
     p = scores.numel() // a
     out_sc = torch.empty((*lead, k), dtype=torch.float32, device=scores.device)

@@ -45,7 +45,8 @@ def test_import_pulls_in_no_jax():
         "data.group_by_aspect_ratio", "data.loader", "data.presets",
         "data.synthetic", "data.transforms", "data.voc", "data.voc_eval",
         "data.native", "utils.torch_weights", "utils.pretrained", "utils.viz",
-        "utils.debug", "hub", "predict", "eval_voc", "train"))
+        "utils.debug", "hub", "predict", "eval_voc", "train",
+        "ops.library", "export", "export.program", "export.cli"))
     code = (f"import demonet_tpu_torch, {modules}; import sys; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'optax', 'orbax', 'demonet_tpu', 'triton')]; "
