@@ -66,7 +66,7 @@ package. The script prints one JSON line per phase:
   families     one line per other detector family (family_detectors:
                seeded random weights; the BN families' statistics
                calibrated and class head scaled so scores cross 0.5):
-               its three predict modes, 4 requests of 32 each, counts
+               its three predict modes, 2 requests of 32 each, counts
                reset before and read after (K1, K2, K3 in its register or
                long-row launch: the VGG rows, A = 8,732 and 24,732, take
                the long one), each mode bit-equal to the reference
@@ -178,6 +178,19 @@ package. The script prints one JSON line per phase:
                step, in turns; the random-weight flagship's fused program
                (the fallback); the raw heads at b1; the four other
                detectors in the reference mode at b1; bf16 at b32
+  caffe        the Caffe export (demonet_tpu_torch/export/caffe.py,
+               caffe_eval.py, tracing.py): the five hand-built families
+               at full width and size (the trained flagship, the others
+               seeded random weights with drawn BN statistics), each
+               exported from the card's module and byte-equal to the
+               export of a CPU copy, its graph run by run_caffenet on the
+               card against the forward there (2e-4 / 2e-5, the softmaxed
+               mbox_conf_softmax and the flat mbox_loc); every name of the
+               registry through trace_to_caffe, against the forward at the
+               CLI's --verify tolerances (5e-3 / 1e-4); the export CLI's
+               --format caffe --generic --verify on the card; export and
+               trace s, MB, the evaluator's ms, max abs errors; no kernel
+               launched
   launch_floor the device time of a one-float fill, the shortest kernel
 
 then `previous_design` (K1's, K3's and K4's times before their
@@ -1427,9 +1440,13 @@ _FAMILY_TRAIN_CPU = ("ssd300_vgg16", "ssd_lite_mobilenet_v2", "pelee304")
 # predict modes of every family: the JAX package's mode names
 _FAMILY_MODES = {"reference": {}, "fused": {"impl": "fused"},
                  "sparse_topk": {"topk_impl": "sparse"}}
-# the counted requests' batch, and the closed-loop (batch, batches) runs
-_FAMILY_BATCH = 32
-_FAMILY_E2E = ((32, 10), (128, 5))
+# the counted requests (per mode) and their batch, the closed-loop (batch,
+# batches) runs, and the calls timed per forward after one warm-up: few,
+# as a VGG model's fp32 forward takes 0.1-0.9 s a batch on the H100 and
+# the whole script has its time limit
+_FAMILY_REQUESTS, _FAMILY_BATCH = 2, 32
+_FAMILY_E2E = ((32, 2), (128, 2))
+_FAMILY_FORWARD_ITERS = 1
 
 
 def family_detectors(name, seed=0):
@@ -1567,7 +1584,7 @@ def families(reset_counts, read_counts):
     """families: the four other detectors on the card, each with seeded
     random weights at full width and its own size (family_detectors):
 
-      * predict through `make_predict_step` in the three modes, 4 requests
+      * predict through `make_predict_step` in the three modes, 2 requests
         of 32, counts reset just before and read just after each mode
         (K1 NMS, K2 gathers, K3 in its register and long-row launches),
         every mode's padded detections bit-equal to the reference
@@ -1613,6 +1630,14 @@ def families(reset_counts, read_counts):
     branches = detection._postprocess_fused.branches
     for fi, name in enumerate(_FAMILIES):
         torch.cuda.reset_peak_memory_stats()
+        t_mark, seconds = time.perf_counter(), {}
+
+        def lap(what):
+            nonlocal t_mark
+            now = time.perf_counter()
+            seconds[what] = now - t_mark
+            t_mark = now
+
         det, cpu = family_detectors(name)
         cfg, size = det.config, det.config.size[0]
 
@@ -1632,8 +1657,9 @@ def families(reset_counts, read_counts):
         anchors = torch.as_tensor(det.anchors, device="cuda")
         a = anchors.shape[0]
         long_rows = a > MAX_ROW
+        n = _FAMILY_REQUESTS
         xs = [torch.from_numpy(shapes_images(rng, b, size)[0]).cuda()
-              for _ in range(4)]
+              for _ in range(n)]
         sizes = torch.tensor([[480, 640]] * b, dtype=torch.int32,
                              device="cuda")
 
@@ -1649,12 +1675,12 @@ def families(reset_counts, read_counts):
             counts = read_counts()
             taken = dict(branches)
             sparse = mode == "sparse_topk"
-            want = {"nms_keep_batch": 4, "gather_rows_batch": 8,
-                    "topk_sparse": 4 if sparse else 0,
+            want = {"nms_keep_batch": n, "gather_rows_batch": 2 * n,
+                    "topk_sparse": n if sparse else 0,
                     "fused_inverted_residual": 0,
-                    "topk_sparse_long": 4 if sparse and long_rows else 0}
+                    "topk_sparse_long": n if sparse and long_rows else 0}
             check(counts == want and (mode != "fused"
-                                      or sum(taken.values()) == 4),
+                                      or sum(taken.values()) == n),
                   f"{name} {mode}: launches {counts}, want {want}; "
                   f"branches {taken}")
             launches_by_path[f"{name}/{mode}"] = counts
@@ -1687,6 +1713,8 @@ def families(reset_counts, read_counts):
                            "bit_equal_to_reference_postprocess": True,
                            **({"branches": taken} if mode == "fused"
                               else {})}
+
+        lap("predict_modes_checked")
 
         # -- the kernels on the model's own rows ---------------------------
         with torch.inference_mode():
@@ -1768,6 +1796,7 @@ def families(reset_counts, read_counts):
             "max_abs_err": _MAX_ERR[f"gather_rows_batch/{name}"],
             "per_predict": "candidate + final gather", "calls": calls}
         del out, cand, rows
+        lap("kernels_checked_and_timed")
 
         # -- closed-loop img/s ---------------------------------------------
         e2e, traces, fc6_ms = {}, {}, {}
@@ -1778,13 +1807,15 @@ def families(reset_counts, read_counts):
                               device="cuda")
             with torch.inference_mode():
                 fwd_ms = cuda_ms(lambda: det.model(
-                    preprocess(x, cfg, resize=False)), 3, 1)
+                    preprocess(x, cfg, resize=False)),
+                    _FAMILY_FORWARD_ITERS, 1)
                 # the same forward with cuDNN choosing its algorithms by
                 # timing them (benchmark mode) instead of by heuristics
                 torch.backends.cudnn.benchmark = True
                 try:
                     fwd_bench_ms = cuda_ms(lambda: det.model(
-                        preprocess(x, cfg, resize=False)), 3, 2)
+                        preprocess(x, cfg, resize=False)),
+                        _FAMILY_FORWARD_ITERS, 1)
                 finally:
                     torch.backends.cudnn.benchmark = False
                 fc6 = getattr(det.model.extractor, "fc6", None)
@@ -1795,7 +1826,8 @@ def families(reset_counts, read_counts):
                 o = det.model(preprocess(x, cfg, resize=False))
                 if fc6 is not None:
                     hook.remove()
-                    fc6_ms[f"b{bs}"] = cuda_ms(lambda: fc6(seen[0]), 3, 1)
+                    fc6_ms[f"b{bs}"] = cuda_ms(lambda: fc6(seen[0]),
+                                               _FAMILY_FORWARD_ITERS, 1)
                     del seen
             for mode, kw in _FAMILY_MODES.items():
                 step = make_predict_step(det, **kw)
@@ -1816,7 +1848,7 @@ def families(reset_counts, read_counts):
                         sz, **kw), 3, 1)
                 if mode == "reference":   # where a batch's time goes
                     traces[f"b{bs}"] = trace_calls(
-                        lambda: step(det.model, x, sz), 2)
+                        lambda: step(det.model, x, sz), 1)
                 e2e[f"{mode}_b{bs}"] = {
                     "img_per_s": bs / med * 1e3, "ms_per_batch_median": med,
                     "ms_per_batch_q1_q3": [q1, q3], "n": iters,
@@ -1825,10 +1857,12 @@ def families(reset_counts, read_counts):
                     "postprocess_ms": post_ms,
                     **({"branches": taken} if mode == "fused" else {})}
             del o, x
+            lap(f"e2e_b{bs}")
         peak = torch.cuda.max_memory_allocated() / 2**30
         del det
         torch.cuda.empty_cache()
         train = family_train(name)
+        lap("train")
         emit({"phase": "families", "model": name, "size": [size, size],
               "classes": c, "anchors": a, "topk_candidates": k,
               "detections_per_img": d, "score_thresh": cfg.score_thresh,
@@ -1840,7 +1874,7 @@ def families(reset_counts, read_counts):
               "trace_reference": traces,
               **({"fc6_forward_ms": fc6_ms} if fc6_ms else {}),
               "predict_peak_mem_gib": peak,
-              "train": train})
+              "train": train, "seconds": seconds})
     return {"launches_by_path": launches_by_path, "kernels": kernels}
 
 
@@ -3071,7 +3105,7 @@ def bf16_training():
     t0_phase = time.perf_counter()
     bf16 = torch.bfloat16
     timing = {}
-    for bs, iters in ((32, 10), (128, 6)):
+    for bs, iters in ((32, 5), (128, 3)):
         det = trained_detector("cuda", dtype=bf16)
         r = step_timing(det, train_batch(1000 + bs, bs, "cuda"), iters)
         if bs == 128:
@@ -3096,7 +3130,7 @@ def bf16_training():
     remat_timing = {}
     for remat in (False, True):
         det = trained_detector("cuda", dtype=bf16)
-        r = step_timing(det, train_batch(1128, 128, "cuda"), 5, remat=remat)
+        r = step_timing(det, train_batch(1128, 128, "cuda"), 3, remat=remat)
         remat_timing["remat" if remat else "plain"] = {
             k: v for k, v in r.items() if k not in ("step", "state")}
         del det, r
@@ -3311,7 +3345,7 @@ def bf16_cli():
 _DIST_ROWS, _DIST_SEED = 16, 5000
 # the sharded evaluation: the train CLI's synthetic frames, 32 a batch
 _DIST_FRAMES, _DIST_EVAL_BATCH = 64, 32
-_DIST_TIMED_STEPS = 5
+_DIST_TIMED_STEPS = 3
 # any collective of the phase raises after this long; a rank process that
 # outlives _DIST_JOIN_S is killed and fails the phase
 _DIST_TIMEOUT_S, _DIST_JOIN_S = 120.0, 300.0
@@ -3742,7 +3776,7 @@ def distributed(trained, batches, sizes, reset_counts, read_counts):
 
 
 # closed-loop batches timed per side in `export`, at b1 and at the e2e batch
-_EXPORT_ITERS = {"b1": 30, "batch": 20}
+_EXPORT_ITERS = {"b1": 15, "batch": 10}
 
 
 def same_outputs(got, want):
@@ -4006,6 +4040,234 @@ def export_artifacts(trained, random_init, batches, reset_counts,
     emit({"phase": "export_done", "seconds": time.perf_counter() - t0,
           "t_s": time.perf_counter() - _T0})
     return launches_by_path
+
+
+# -- the Caffe export -----------------------------------------------------------
+# the tolerances of tests/test_caffe_eval.py for the hand-built graphs, and
+# the export CLI's --verify for the generic route
+_CAFFE_HAND_TOL = (2e-4, 2e-5)
+_CAFFE_GENERIC_TOL = (5e-3, 1e-4)
+# timed runs of the evaluator per graph
+_CAFFE_EVAL_ITERS = 5
+_CAFFE_LOG = os.path.join(_HERE, "chiprun_out", "caffe_cli.log")
+
+
+def caffe_model(name, trained, seed=0):
+    """(module on the card, one input (1, S, S, 3) on the card, classes) of
+    a registry name for the `caffe` phase: the flagship the trained npz
+    model; every other name its builder's seeded weights and class count,
+    every BN's scale and running variance drawn in [0.5, 1.5], its bias
+    and running mean from N(0, 0.1) (as tests/torch_caffe.py draws them),
+    so that each BN is a real per-channel affine and the activations stay
+    near 1 (statistics calibrated on a few frames leave the 1x1 maps'
+    variances near 0, and outputs in the hundreds). A detector's input is
+    a preprocessed shapes frame at its size; a classifier's (224x224) the
+    same frame scaled to [-1, 1]."""
+    import numpy as np
+    import torch
+
+    from demonet_tpu_torch.models.builders import get_model
+    from demonet_tpu_torch.models.detection import preprocess, to_float
+    from demonet_tpu_torch.models.layers import BatchNorm
+
+    built = trained if name == _FLAGSHIP else get_model(name, seed=seed)
+    module = getattr(built, "model", built)
+    cfg = getattr(built, "config", None)
+    if name != _FLAGSHIP:
+        rng = np.random.default_rng(seed)
+        with torch.no_grad():
+            for m in module.modules():
+                if isinstance(m, BatchNorm):
+                    c = m.num_features
+                    for t, draw in ((m.weight, rng.uniform(0.5, 1.5, c)),
+                                    (m.running_var, rng.uniform(0.5, 1.5, c)),
+                                    (m.bias, rng.normal(0.0, 0.1, c)),
+                                    (m.running_mean, rng.normal(0.0, 0.1, c))):
+                        t.copy_(torch.from_numpy(draw))
+    size = cfg.size[0] if cfg is not None else 224
+    frame = to_float(torch.from_numpy(shapes_images(
+        np.random.default_rng(seed), 1, size)[0]).cuda())
+    x = (preprocess(frame, cfg, resize=False) if cfg is not None
+         else frame * 2.0 - 1.0)
+    classes = (cfg.num_classes if cfg is not None
+               else module.classifier.out_features)
+    return module, x.contiguous(), classes
+
+
+def within(got, want, rtol, atol):
+    """(every element within atol + rtol * |want| and the shapes equal,
+    the max abs difference)."""
+    import torch
+
+    if tuple(got.shape) != tuple(want.shape):
+        return False, None
+    diff = (got.float() - want.float()).abs()
+    return (bool(torch.all(diff <= atol + rtol * want.float().abs())),
+            float(diff.max()))
+
+
+def caffe_export(trained, reset_counts, read_counts):
+    """caffe: the Caffe export (demonet_tpu_torch/export/caffe.py,
+    caffe_eval.py, tracing.py) on the card:
+
+      * the five hand-built families, each at full width and its size (the
+        flagship from the trained npz, 91 classes; the others seeded random
+        weights at their builders' class counts, caffe_model): exported
+        from the card's module, prototxt and caffemodel byte-equal to the
+        export of a CPU copy of its weights; the graph run by
+        `run_caffenet` on the card and held to the module's forward there
+        at tests/test_caffe_eval.py's tolerances (the softmaxed
+        mbox_conf_softmax and the flat mbox_loc; a classifier's "prob");
+        export s, MB, the evaluator's ms, the max abs error per output;
+      * the generic route (`trace_to_caffe`, torch.export on the card) over
+        every name of the registry, the detectors as raw heads, each graph
+        held to the forward on the card at the export CLI's --verify
+        tolerances; trace s and the layer counts;
+      * the export CLI once: --format caffe --generic --verify on the
+        trained flagship, on the card, into a temporary directory (its
+        printing in chiprun_out/caffe_cli.log).
+
+    No kernel lies on this path: the counts stay 0."""
+    import collections
+    import copy
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from demonet_tpu_torch.export import caffe
+    from demonet_tpu_torch.export import cli as export_cli
+    from demonet_tpu_torch.export.caffe_eval import (
+        no_tf32,
+        on_device,
+        run_caffenet,
+    )
+    from demonet_tpu_torch.export.tracing import output_list, trace_to_caffe
+    from demonet_tpu_torch.models.builders import MODEL_REGISTRY
+
+    t0_phase = time.perf_counter()
+
+    def eval_ms(net, data):
+        """(blobs, median ms, q1-q3) of the evaluator on the card over
+        _CAFFE_EVAL_ITERS runs after one warm-up, the weights already on
+        the card."""
+        dev_net = on_device(net, "cuda")
+        run_caffenet(dev_net, {"data": data})
+        per = []
+        for _ in range(_CAFFE_EVAL_ITERS):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            blobs = run_caffenet(dev_net, {"data": data})
+            torch.cuda.synchronize()
+            per.append((time.perf_counter() - t) * 1e3)
+        q1, med, q3 = np.percentile(per, [25, 50, 75])
+        return blobs, med, [q1, q3]
+
+    reset_counts()
+    with tempfile.TemporaryDirectory(dir=_HERE) as tmp:
+        for name in MODEL_REGISTRY:
+            module, x, classes = caffe_model(name, trained)
+            size = x.shape[1]
+            data = x.permute(0, 3, 1, 2).contiguous()
+            with torch.no_grad(), no_tf32():
+                out = module(x)
+            if name in caffe.BUILDERS:
+                # -- the hand-built graph -----------------------------------
+                files = (os.path.join(tmp, f"{name}.prototxt"),
+                         os.path.join(tmp, f"{name}.caffemodel"))
+                t = time.perf_counter()
+                net = caffe.export_caffe(name, module, *files,
+                                         num_classes=classes,
+                                         input_size=size)
+                export_s = time.perf_counter() - t
+                cpu_net = caffe.BUILDERS[name](
+                    copy.deepcopy(module).cpu(), num_classes=classes,
+                    input_size=size)
+                with open(files[0]) as f:
+                    same_text = f.read() == cpu_net.to_prototxt()
+                with open(files[1], "rb") as f:
+                    same_bytes = f.read() == cpu_net.to_caffemodel()
+                check(same_text and same_bytes,
+                      f"caffe {name}: the card module's export != its CPU "
+                      f"copy's (prototxt {same_text}, caffemodel "
+                      f"{same_bytes})")
+                del cpu_net
+                blobs, med, q13 = eval_ms(net, data)
+                if isinstance(out, dict):
+                    want = {"mbox_conf_softmax":
+                            torch.softmax(out["cls_logits"], -1),
+                            "mbox_loc": out["bbox_regression"].reshape(1, -1)}
+                else:
+                    want = {"prob": torch.softmax(out, -1)}
+                res = {top: within(blobs[top], w, *_CAFFE_HAND_TOL)
+                       for top, w in want.items()}
+                check(all(ok for ok, _ in res.values()),
+                      f"caffe {name}: hand graph against the forward {res}")
+                emit({"phase": "caffe", "route": "hand", "model": name,
+                      "input": list(data.shape), "classes": classes,
+                      "output_abs_max": {k: float(w.abs().max())
+                                         for k, w in want.items()},
+                      "layers": len(net.layers), "export_s": export_s,
+                      "prototxt_mb": os.path.getsize(files[0]) / 1e6,
+                      "caffemodel_mb": os.path.getsize(files[1]) / 1e6,
+                      "bytes_equal_to_cpu_export": True,
+                      "eval_ms_median": med, "eval_ms_q1_q3": q13,
+                      "eval_iters": _CAFFE_EVAL_ITERS,
+                      "max_abs_err": {k: e for k, (_, e) in res.items()},
+                      "rtol_atol": list(_CAFFE_HAND_TOL)})
+                del net, blobs
+                for f in files:
+                    os.remove(f)
+            # -- the generic route -----------------------------------------
+            t = time.perf_counter()
+            net = trace_to_caffe(module, torch.zeros_like(x), name=name)
+            trace_s = time.perf_counter() - t
+            blobs, med, q13 = eval_ms(net, data)
+            want = output_list(out)
+            check(len(want) == len(net.output_tops),
+                  f"caffe {name}: {len(net.output_tops)} graph outputs, "
+                  f"the module has {len(want)}")
+            res = {top: within(blobs[top], w, *_CAFFE_GENERIC_TOL)
+                   for top, w in zip(net.output_tops, want)}
+            check(all(ok for ok, _ in res.values()),
+                  f"caffe {name}: generic graph against the forward {res}")
+            emit({"phase": "caffe", "route": "generic", "model": name,
+                  "input": list(data.shape), "trace_s": trace_s,
+                  "output_abs_max": [float(w.abs().max()) for w in want],
+                  "layers": len(net.layers),
+                  "layer_types": dict(collections.Counter(
+                      layer.type for layer in net.layers)),
+                  "eval_ms_median": med, "eval_ms_q1_q3": q13,
+                  "max_abs_err": {k: e for k, (_, e) in res.items()},
+                  "rtol_atol": list(_CAFFE_GENERIC_TOL)})
+            del net, blobs, module, out
+            torch.cuda.empty_cache()
+
+        # -- the export CLI, --generic --verify, on the card ---------------
+        prefix = os.path.join(tmp, "cli")
+        argv = ["--model", _FLAGSHIP, "--num-classes", "91", "--npz-weights",
+                _NPZ, "--format", "caffe", "--generic", "--verify",
+                "--output", prefix + ".pt2"]
+        t = time.perf_counter()
+        with open(_CAFFE_LOG, "w") as log, contextlib.redirect_stdout(log):
+            export_cli.main(export_cli.get_args_parser().parse_args(argv))
+        cli_s = time.perf_counter() - t
+        with open(_CAFFE_LOG) as log:
+            verified = "verified numerically against the model's forward " \
+                "on cuda" in log.read()
+        written = [os.path.exists(f"{prefix}.{ext}")
+                   for ext in ("prototxt", "caffemodel")]
+        check(verified and all(written),
+              f"caffe CLI: verified on the card {verified}, files written "
+              f"{written}")
+        emit({"phase": "caffe", "route": "cli", "argv": argv[:-1],
+              "verified_on_card": True, "files_written": True,
+              "seconds": cli_s})
+    counts = read_counts()
+    check(not any(counts.values()),
+          f"the Caffe export launched kernels: {counts}")
+    emit({"phase": "caffe_done", "launches": counts,
+          "seconds": time.perf_counter() - t0_phase})
 
 
 def main():
@@ -4819,6 +5081,8 @@ def main():
     # -- torch.export artifacts: K1 and K2 inside the exported programs ----
     launches_by_path.update(export_artifacts(trained, random_init, batches,
                                              reset_counts, read_counts))
+    # -- the Caffe export: hand-built, generic, the CLI's --verify --------
+    caffe_export(trained, reset_counts, read_counts)
     for r in rows:
         r["launches"] = total_launches(r["name"])
         r["launches_by_path"] = by_path(r["name"])

@@ -5,18 +5,30 @@
         --checkpoint out/checkpoint_25 --output model.pt2
     python -m demonet_tpu_torch.export.cli --num-classes 91 --npz-weights \
         bench_assets/ssdlite320_shapes_trained.npz --output m.pt2 --device cpu
+    python -m demonet_tpu_torch.export.cli --model pelee304 --format caffe \
+        --output deploy   # writes deploy.prototxt + deploy.caffemodel
 
-Writes the `torch.export` program of preprocess -> model -> postprocess
-(`export/program.py`), the weights in it; reload it with
-`demonet_tpu_torch.export.load_exported(path)` (which registers the
+The default format writes the `torch.export` program of preprocess ->
+model -> postprocess (`export/program.py`), the weights in it; reload it
+with `demonet_tpu_torch.export.load_exported(path)` (which registers the
 kernels' custom ops first) and run `.module()(images)`.
+
+`--format caffe` writes `<prefix>.prototxt` and `<prefix>.caffemodel`
+(the output less a `.pt2`, `.stablehlo.bin` or `.bin` suffix): the
+family's hand-built graph (`export/caffe.py`), or with `--generic` the
+graph `export/tracing.py` reads off the model's `torch.export` program,
+for any model; `--verify` then runs that graph with
+`export/caffe_eval.py` on the device and holds it to the model's forward
+there (rtol 5e-3, atol 1e-4) before writing. The Caffe graph holds the
+raw heads (decode and NMS belong to the SSD fork's DetectionOutput).
+With `--bf16` the model computes in bf16; the hand-built graph writes its
+float32 parameters, as the JAX CLI writes its float32 variables.
 
 The flags are the JAX CLI's, plus `--device` (`cuda` by default; with no
 GPU it raises unless asked for `cpu`): the program runs on the device it
 was exported on, the hand-written kernels inside it on the card. Not
-ported: `--format caffe`, `--generic` and `--verify` (the Caffe export,
-ROADMAP item 11b) and `--mlir` (StableHLO text for the C++ PJRT runner,
-item 11c); `--platforms` is `--device` here. Each raises, saying so.
+ported: `--mlir` (StableHLO text for the C++ PJRT runner, ROADMAP item
+11c), which raises; `--platforms` is `--device` here.
 """
 
 from __future__ import annotations
@@ -41,14 +53,18 @@ def get_args_parser(add_help: bool = True) -> argparse.ArgumentParser:
                    help="flat .npz variables (the committed bench-asset "
                         "format: keys 'params/...', 'batch_stats/...')")
     p.add_argument("--format", default="pt2", choices=["pt2", "caffe"],
-                   help="pt2 = a torch.export program; caffe raises ("
-                        + _NOT_PORTED.format("11b") + ")")
+                   help="pt2 = a torch.export program; caffe = prototxt + "
+                        "caffemodel (export/caffe.py)")
     p.add_argument("--generic", action="store_true",
-                   help="raises: a flag of the Caffe export ("
-                        + _NOT_PORTED.format("11b") + ")")
+                   help="with --format caffe: convert by walking the "
+                        "model's torch.export graph (export/tracing.py) "
+                        "instead of the hand-built family graph; any model "
+                        "built from supported operations")
     p.add_argument("--verify", action="store_true",
-                   help="raises: a flag of the Caffe export ("
-                        + _NOT_PORTED.format("11b") + ")")
+                   help="with --format caffe --generic: run the emitted "
+                        "graph (export/caffe_eval.py) on a seeded input on "
+                        "--device and assert it matches the model's "
+                        "forward before writing the files")
     p.add_argument("--output", default="model.pt2")
     p.add_argument("--mlir", default="",
                    help="raises: StableHLO text for the C++ PJRT runner ("
@@ -72,10 +88,6 @@ def get_args_parser(add_help: bool = True) -> argparse.ArgumentParser:
 
 
 def _refuse_unported(args) -> None:
-    if args.format == "caffe" or args.generic or args.verify:
-        raise NotImplementedError(
-            "--format caffe, --generic and --verify: the Caffe export is "
-            + _NOT_PORTED.format("11b"))
     if args.mlir:
         raise NotImplementedError(
             "--mlir: StableHLO text for the C++ PJRT runner is "
@@ -88,7 +100,8 @@ def _refuse_unported(args) -> None:
 
 def main(args):
     """Build the model, load its weights, export and save the program;
-    returns the `torch.export.ExportedProgram`."""
+    returns the `torch.export.ExportedProgram`, or with --format caffe
+    the `CaffeNet` written."""
     _refuse_unported(args)
 
     import torch
@@ -121,6 +134,8 @@ def main(args):
         load_jax_variables(module, load_npz_variables(args.npz_weights))
         print(f"loaded npz weights from {args.npz_weights}")
 
+    if args.format == "caffe":
+        return _export_caffe(args, detector, module, device)
     exported = export_detector(
         detector, batch_size=args.batch_size,
         with_postprocess=not args.raw_outputs,
@@ -128,6 +143,49 @@ def main(args):
     save_exported(exported, args.output)
     print(f"wrote {args.output}")
     return exported
+
+
+def _export_caffe(args, detector, module, device):
+    import numpy as np
+    import torch
+
+    from demonet_tpu_torch.export.caffe import export_caffe, write_caffe
+
+    prefix = args.output
+    for suffix in (".pt2", ".stablehlo.bin", ".bin"):
+        if prefix.endswith(suffix):
+            prefix = prefix[: -len(suffix)]
+    files = (f"{prefix}.prototxt", f"{prefix}.caffemodel")
+    if not args.generic:
+        net = export_caffe(args.model, module, *files,
+                           num_classes=args.num_classes)
+        print(f"wrote {files[0]} + {files[1]}")
+        return net
+
+    from demonet_tpu_torch.export.caffe_eval import no_tf32, run_caffenet
+    from demonet_tpu_torch.export.tracing import output_list, trace_to_caffe
+
+    h, w = detector.config.size if hasattr(detector, "config") else (224, 224)
+    net = trace_to_caffe(module, torch.zeros((1, h, w, 3), device=device),
+                         name=args.model)
+    if args.verify:
+        x = (np.random.default_rng(0).random((1, h, w, 3), np.float32)
+             * 2.0 - 0.5)
+        with torch.no_grad(), no_tf32():
+            want = output_list(module.eval()(torch.from_numpy(x).to(device)))
+        blobs = run_caffenet(net, {"data": np.transpose(x, (0, 3, 1, 2))},
+                             device=device)
+        for top, ref in zip(net.output_tops, want):
+            np.testing.assert_allclose(
+                blobs[top].float().cpu().numpy(),
+                ref.float().cpu().numpy(), rtol=5e-3, atol=1e-4,
+                err_msg=top)
+        print("generic conversion verified numerically against the "
+              f"model's forward on {device} ({len(net.output_tops)} "
+              "outputs)")
+    write_caffe(net, *files)
+    print(f"wrote {files[0]} + {files[1]}")
+    return net
 
 
 if __name__ == "__main__":

@@ -4,9 +4,9 @@ demonet_tpu/export/cli.py), driven through `main` with `--device cpu`.
 Each weight flag (`--npz-weights`, `--checkpoint`, `--torch-weights`)
 puts its weights into the program: the reloaded artifact is bit-equal to
 the eager model loaded the same way. The flags of the parts not ported
-(the Caffe export, the StableHLO text, `--platforms`) raise, naming what
-takes their place, and without a GPU the CLI raises unless asked for the
-CPU.
+(the StableHLO text, `--platforms`) raise, naming what takes their
+place, and without a GPU the CLI raises unless asked for the CPU. The
+Caffe flags: tests/test_torch_caffe_cli.py.
 """
 
 import os
@@ -104,11 +104,10 @@ def test_cli_bf16_and_batch_size(tmp_path):
 
 
 @pytest.mark.parametrize("argv,error,names", [
-    (["--format", "caffe"], NotImplementedError, "11b"),
-    (["--generic"], NotImplementedError, "11b"),
-    (["--verify"], NotImplementedError, "11b"),
-    (["--mlir", "model.mlir"], NotImplementedError, "11c"),
-    (["--platforms", "cpu"], ValueError, "--device"),
+    pytest.param(["--mlir", "model.mlir"], NotImplementedError, "11c",
+                 id="argv3-NotImplementedError-11c"),
+    pytest.param(["--platforms", "cpu"], ValueError, "--device",
+                 id="argv4-ValueError---device"),
 ])
 def test_cli_refuses_unported_flags(argv, error, names, tmp_path):
     with pytest.raises(error, match=names):
@@ -118,7 +117,8 @@ def test_cli_refuses_unported_flags(argv, error, names, tmp_path):
 
 def test_cli_help_names_what_replaces_each_flag():
     text = cli.get_args_parser().format_help()
-    for words in ("11b", "11c", "--device", "torch.cond"):
+    for words in ("11c", "--device", "torch.cond", "caffemodel",
+                  "export/tracing.py", "export/caffe_eval.py"):
         assert words in text, words
 
 
