@@ -191,6 +191,24 @@ package. The script prints one JSON line per phase:
                --format caffe --generic --verify on the card; export and
                trace s, MB, the evaluator's ms, max abs errors; no kernel
                launched
+  cpp_runner   the detector run from C++ with no Python
+               (demonet_tpu_torch/export/aoti.py, csrc/aoti_runner.cc,
+               csrc/aoti_ops.cc): the runner and the ops library that
+               registers K1 and K2 from C++ built with g++ against the
+               wheel's libtorch (the ops library linked to K1's and K2's
+               nvcc libraries); the trained flagship packaged by
+               AOTInductor at b1 in the reference and fused modes; the
+               runner on each over the first e2e frame, 50 timed calls,
+               its dumped outputs bit-equal to the Python call of the same
+               package, its own counts of K1 (and its launch shape) and K2
+               launched in every call, the detections against the eager
+               step and against the same postprocess with K1 and K2 in
+               their plain versions (bit-equal or within scores 1e-5,
+               boxes 1e-3 px); every child exited before the timings;
+               p50/best/mean ms of the runner, the Python package call,
+               the export phase's b1 program and the eager step; and
+               dump_hlo(stage="optimized") on the card naming a Triton
+               kernel
   launch_floor the device time of a one-float fill, the shortest kernel
 
 then `previous_design` (K1's, K3's and K4's times before their
@@ -3789,7 +3807,7 @@ def same_outputs(got, want):
 
 
 def export_artifacts(trained, random_init, batches, reset_counts,
-                     read_counts):
+                     read_counts, packaging=None):
     """export: the torch.export artifacts (`demonet_tpu_torch.export`) on
     the card, each exported, saved to disk, loaded back and run:
 
@@ -3814,7 +3832,10 @@ def export_artifacts(trained, random_init, batches, reset_counts,
     Where a program's detections differ from eager's, both run again
     under cudnn_deterministic(); the line says whether that was needed.
     No fallback: a kernel that fails inside a program fails the run.
-    Returns the launches by path ('export/...')."""
+    With `packaging` (a CppPackaging), the trained flagship's b1 programs
+    are saved into `packaging.dir` and handed, as saved, to
+    `packaging.start` (`cpp_runner` packages and times them). Returns the
+    launches by path ('export/...')."""
     import tempfile
 
     import numpy as np
@@ -3834,16 +3855,17 @@ def export_artifacts(trained, random_init, batches, reset_counts,
     frames = [to_float(x) for x in batches]
     b_e2e = frames[0].shape[0]
 
-    def artifact(det, tmp, name, **kwargs):
-        """(the reloaded program, export s, save + load s, MB)."""
+    def artifact(det, where, name, **kwargs):
+        """(the reloaded program's module, export s, save + load s, MB),
+        the program saved as `where`/`name`.pt2."""
         t = time.perf_counter()
         exported = export_detector(det, **kwargs)
         export_s = time.perf_counter() - t
-        path = os.path.join(tmp, f"{name}.pt2")
+        path = os.path.join(where, f"{name}.pt2")
         t = time.perf_counter()
         save_exported(exported, path)
-        program = load_exported(path).module()
-        return (program, export_s, time.perf_counter() - t,
+        module = load_exported(path).module()
+        return (module, export_s, time.perf_counter() - t,
                 os.path.getsize(path) / 1e6)
 
     def drive(program, xs):
@@ -3921,8 +3943,10 @@ def export_artifacts(trained, random_init, batches, reset_counts,
             step = make_predict_step(trained, impl=mode)
             for b in (1, b_e2e):
                 xs = frames if b == b_e2e else [f[:1] for f in frames]
+                kept = packaging is not None and b == 1
+                where = packaging.dir if kept else tmp
                 program, export_s, io_s, mb = artifact(
-                    trained, tmp, f"{mode}_b{b}", batch_size=b,
+                    trained, where, f"{mode}_b{b}", batch_size=b,
                     postprocess_impl=mode)
                 outs, counts, ks, det_needed = compare(program, step,
                                                        trained, xs)
@@ -3947,6 +3971,10 @@ def export_artifacts(trained, random_init, batches, reset_counts,
                                          _EXPORT_ITERS["b1" if b == 1
                                                        else "batch"]),
                       "t_s": time.perf_counter() - _T0})
+                if kept:
+                    packaging.start(mode, os.path.join(where,
+                                                       f"{mode}_b1.pt2"),
+                                    program)
                 del program
 
         # -- the random-weight flagship's fused program: the fallback -------
@@ -4270,6 +4298,335 @@ def caffe_export(trained, reset_counts, read_counts):
           "seconds": time.perf_counter() - t0_phase})
 
 
+# -- the C++ runner -------------------------------------------------------------
+# timed calls of each side at b1
+_CPP_ITERS = 50
+# a package's detections against the eager step's where they are not
+# bit-equal: tests/test_torch_export.py's tolerances against the JAX
+# artifact (Inductor fuses BN and activations, so the heads move by ulps)
+_CPP_EAGER_TOL = {"scores": 1e-5, "boxes": 1e-3}
+
+
+def host_timed(fn, iters, warmup=3):
+    """ms of fn() with every output copied to the host at each call, the
+    runner's completion barrier: {'best', 'p50', 'mean', 'n'}."""
+    import numpy as np
+    import torch
+    from torch.utils._pytree import tree_leaves
+
+    ms = []
+    with torch.no_grad():
+        for i in range(warmup + iters):
+            t = time.perf_counter()
+            [leaf.cpu() for leaf in tree_leaves(fn())]
+            if i >= warmup:
+                ms.append((time.perf_counter() - t) * 1e3)
+    return {"best": min(ms), "p50": float(np.percentile(ms, 50)),
+            "mean": float(np.mean(ms)), "n": iters}
+
+
+def detections_within(got, want, tol):
+    """Two runs' detections: (bit-equal, max score difference, max box
+    difference), each image's valid detections sorted by (-score, label);
+    fails unless the valid counts and labels are equal and the scores and
+    boxes within `tol`."""
+    import numpy as np
+
+    got = {k: v.cpu().numpy() for k, v in got.items()}
+    want = {k: v.cpu().numpy() for k, v in want.items()}
+    if all(np.array_equal(got[k], want[k]) for k in want):
+        return True, 0.0, 0.0
+    check(np.array_equal(got["valid"].sum(1), want["valid"].sum(1)),
+          f"valid detections {got['valid'].sum(1)} != eager's "
+          f"{want['valid'].sum(1)}")
+    s_err = b_err = 0.0
+    for i in range(len(want["valid"])):
+        sides = []
+        for d in (got, want):
+            v = d["valid"][i]
+            order = np.lexsort((d["labels"][i][v], -d["scores"][i][v]))
+            sides.append([d[k][i][v][order] for k in ("scores", "labels",
+                                                      "boxes")])
+        (gs, gl, gb), (ws, wl, wb) = sides
+        check(np.array_equal(gl, wl), f"image {i}: labels differ")
+        if len(ws):
+            s_err = max(s_err, float(np.abs(gs - ws).max()))
+            b_err = max(b_err, float(np.abs(gb - wb).max()))
+    check(s_err <= tol["scores"] and b_err <= tol["boxes"],
+          f"scores {s_err} or boxes {b_err} beyond {tol}")
+    return False, s_err, b_err
+
+
+# what a child of CppPackaging runs, each step timed from after the
+# imports: the runner's build (its paths printed as JSON), or one package
+# of a saved torch.export program and then, if a third argument names a
+# file, dump_hlo(stage="optimized") of a tiny function on the card into it
+_CPP_CHILD = """
+import dataclasses, json, sys, time
+import torch
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_tf32 = False
+from demonet_tpu_torch.export import aoti, load_exported
+from demonet_tpu_torch.utils.debug import dump_hlo
+t = time.perf_counter()
+if sys.argv[1] == "build":
+    print("runner", json.dumps(dataclasses.asdict(aoti.build_runner("cuda"))))
+else:
+    aoti.package_exported(load_exported(sys.argv[1]), sys.argv[2])
+print("seconds", time.perf_counter() - t, flush=True)
+if len(sys.argv) > 3:
+    t = time.perf_counter()
+    with open(sys.argv[3], "w") as f:
+        f.write(dump_hlo(lambda a: (a * 2 + 1).sum(),
+                         torch.ones((4, 4), device="cuda"),
+                         stage="optimized"))
+    print("dump_hlo seconds", time.perf_counter() - t, flush=True)
+"""
+
+
+class CppPackaging:
+    """The C++ runner's build and the trained flagship's two AOTInductor
+    packages, each in a process of its own (the reference package's also
+    compiles `dump_hlo`'s tiny function after it), started before the
+    `export` phase ends and run beside it and the `caffe` phase: a package
+    takes 2-3 minutes of compiling, most of it g++ and the Triton compiler
+    on the host's other cores. The children compile with CXX set to the g++
+    on PATH: the card's machine sets CXX to a g++ without OpenMP's link
+    spec (libgomp.spec), and Inductor links every package with -fopenmp.
+    `stop()` kills whichever is still running and removes the packages;
+    every child's printing goes to chiprun_out/cpp_runner_<name>.log."""
+
+    def __init__(self):
+        import shutil
+        import tempfile
+
+        self.dir = tempfile.mkdtemp(dir=_HERE)
+        self.procs = {}
+        self.programs = {}
+        self.env = dict(os.environ, CXX=shutil.which("g++") or "g++")
+
+    def _start(self, name, *args):
+        os.makedirs(os.path.dirname(_LOG), exist_ok=True)
+        log = open(os.path.join(os.path.dirname(_LOG),
+                                f"cpp_runner_{name}.log"), "w")
+        # at a lower priority than this process, whose phases it runs
+        # beside: their host work keeps its cores
+        self.procs[name] = (subprocess.Popen(
+            [sys.executable, "-c", _CPP_CHILD, *args], cwd=_HERE,
+            env=self.env, stdout=log, stderr=subprocess.STDOUT,
+            preexec_fn=lambda: os.nice(10)), log)
+
+    def start_build(self):
+        self._start("build", "build")
+
+    def dump_path(self):
+        return os.path.join(self.dir, "dump_hlo.txt")
+
+    def start(self, mode, src, program):
+        """Package `src` (the export phase's saved b1 program of `mode`) in
+        a new process; keep its reloaded module for the timings."""
+        self.programs[mode] = program
+        self._start(mode, src, self.path(mode),
+                    *([self.dump_path()] if mode == "reference" else []))
+
+    def path(self, mode):
+        return os.path.join(self.dir, f"{mode}.pt2")
+
+    def wait(self, name, timeout=600.0):
+        """What the child printed, once it has exited 0; fails else."""
+        proc, log = self.procs[name]
+        proc.wait(timeout=timeout)
+        log.close()
+        with open(log.name) as f:
+            text = f.read()
+        check(proc.returncode == 0,
+              f"cpp_runner's {name} process exited {proc.returncode}:\n"
+              f"{text[-4000:]}")
+        return text
+
+    def running(self):
+        """The children that have not exited."""
+        return sorted(n for n, (proc, _) in self.procs.items()
+                      if proc.poll() is None)
+
+    def stop(self):
+        import shutil
+
+        for proc, log in self.procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+
+def cpp_runner(trained, batches, packaging):
+    """cpp_runner: the detector run from C++ with no Python
+    (demonet_tpu_torch/export/aoti.py, csrc/aoti_runner.cc, aoti_ops.cc):
+
+      * the runner and the ops library built with g++ against the wheel's
+        libtorch, the ops library linked to K1's and K2's nvcc libraries;
+      * the trained flagship (91 classes, 320x320) packaged by AOTInductor
+        at b1 in the reference and fused modes, from the programs the
+        export phase saved, in `packaging`'s processes (compile s, MB; K1
+        and K2 extern nodes of the package, K3 none); every child has
+        exited before the first timed call here, so no compile shares the
+        host with a timing;
+      * the runner on each, 50 timed calls on the first `e2e` frame
+        written raw (a frame of sparse scores: the fused package takes a
+        tier), its outputs dumped: bit-equal to the Python call of the same
+        package on the same input, both under `aoti.runner_numerics()`;
+        its K1 and K2 counts: 1 and 2 every call, K1 in the block launch
+        (reference) or the tiled one (a fused tier); its detections against
+        the eager step in the same mode and against the same postprocess
+        on the eager heads with K1 and K2 in their plain versions (the
+        runner's launches of K1 and K2 held to plain PyTorch at this path's
+        shapes: P = 90, K = 300 and P = 1, K = R), each bit-equal or within
+        _CPP_EAGER_TOL; p50, best and mean ms of the runner, the Python
+        package call, the export phase's torch.export program and the
+        eager step, each call ending with its outputs on the host;
+      * `dump_hlo(stage="optimized")` of a tiny function on the card, in
+        the reference package's process: the text names a Triton kernel.
+
+    Returns the launches by path ('cpp_runner/...'), counted by the ops
+    library in the runner's process over all its calls."""
+    import re
+    import zipfile
+
+    import torch
+    from torch.utils._pytree import tree_flatten, tree_unflatten
+
+    from demonet_tpu_torch.engine.evaluate import make_predict_step
+    from demonet_tpu_torch.export import aoti
+    from demonet_tpu_torch.models.detection import (
+        postprocess_detections,
+        preprocess,
+        to_float,
+    )
+
+    def printed(text, step):
+        return float(re.findall(rf"^{step} ([\d.]+)$", text, re.M)[-1])
+
+    t0 = time.perf_counter()
+    logs, waited_s = {}, {}
+    for name in ("build", "reference", "fused"):
+        t = time.perf_counter()
+        logs[name] = packaging.wait(name)
+        waited_s[name] = time.perf_counter() - t
+    running = packaging.running()
+    check(not running, f"cpp_runner: children still running {running}")
+    runner = aoti.Runner(**json.loads(
+        re.findall(r"^runner (.*)$", logs["build"], re.M)[-1]))
+    ldd = {}
+    for path in (runner.runner, runner.ops):
+        out = subprocess.run(["ldd", path], capture_output=True,
+                             text=True).stdout
+        check("not found" not in out, f"ldd {path}:\n{out}")
+        ldd[os.path.basename(path)] = sorted(
+            ln.split()[0] for ln in out.splitlines()
+            if "torch" in ln or "c10" in ln or ln.split()[0].startswith(
+                ("nms-", "gather-")))
+    emit({"phase": "cpp_runner_build", "seconds": printed(logs["build"],
+                                                          "seconds"),
+          "runner": os.path.basename(runner.runner),
+          "ops": os.path.basename(runner.ops), "ldd": ldd,
+          "waited_s": waited_s, "children_running_before_timing": running})
+
+    x = to_float(batches[0][:1]).contiguous()
+    raw = os.path.join(packaging.dir, "input.bin")
+    x.cpu().numpy().tofile(raw)
+    anchors = torch.as_tensor(trained.anchors, device=x.device)
+    launches_by_path = {}
+    for mode in ("reference", "fused"):
+        path = packaging.path(mode)
+        with zipfile.ZipFile(path) as z:
+            (meta,) = [n for n in z.namelist()
+                       if n.endswith(".wrapper.json")]
+            externs = sorted({nd["node"]["target"] for nd in
+                              json.loads(z.read(meta))["nodes"]})
+        check(externs == ["demonet_tpu_torch::gather_rows_batch",
+                          "demonet_tpu_torch::nms_keep_batch"],
+              f"{mode} package's extern nodes {externs}")
+        prefix = os.path.join(packaging.dir, mode)
+        res = aoti.run_runner(runner, path, tuple(x.shape), iters=_CPP_ITERS,
+                              input_file=raw, dump_out=prefix)
+        per_call = res.launches
+        shapes = [s for s in ("block", "tiled", "long")
+                  if per_call.get(f"nms_keep_batch.{s}")]
+        check(res.device == "cuda" and per_call.get("nms_keep_batch") == 1
+              and per_call.get("gather_rows_batch") == 2
+              and shapes == ["block" if mode == "reference" else "tiled"],
+              f"{mode}: the runner on {res.device} launched {per_call} a "
+              "call; want K1 once (block launch, or tiled on a fused tier) "
+              "and K2 twice on cuda")
+        diffs = aoti.check_parity(path, prefix, x)
+        compiled = aoti.load_package(path)
+        step = make_predict_step(trained, impl=mode)
+        program = packaging.programs[mode]
+        with aoti.runner_numerics(), torch.no_grad():
+            leaves, spec = tree_flatten(compiled(x))
+            ran = tree_unflatten(aoti.read_dumps(
+                prefix, [t.cpu().contiguous() for t in leaves]), spec)
+            want = step(trained.model, x)
+            equal, s_err, b_err = detections_within(ran, want,
+                                                    _CPP_EAGER_TOL)
+            with torch.inference_mode():
+                heads = trained.model(preprocess(x, trained.config,
+                                                 resize=False))
+                plain = postprocess_detections(
+                    heads["cls_logits"], heads["bbox_regression"], anchors,
+                    trained.config, nms_impl="plain", gather_impl="plain",
+                    impl=mode)
+            p_equal, p_s_err, p_b_err = detections_within(ran, plain,
+                                                          _CPP_EAGER_TOL)
+            timing = {
+                "cpp_runner": {**res.ms, "n": res.iters},
+                "python_package": host_timed(lambda: compiled(x),
+                                             _CPP_ITERS),
+                "torch_export_program": host_timed(lambda: program(x),
+                                                   _CPP_ITERS),
+                "eager_step": host_timed(lambda: step(trained.model, x),
+                                         _CPP_ITERS)}
+        launches = {"nms_keep_batch": per_call["nms_keep_batch"] * res.calls,
+                    "gather_rows_batch": per_call["gather_rows_batch"]
+                    * res.calls,
+                    "topk_sparse": 0, "fused_inverted_residual": 0,
+                    "topk_sparse_long": 0}
+        launches_by_path[f"cpp_runner/{mode}_b1"] = launches
+        emit({"phase": "cpp_runner", "package": f"cpp_runner/{mode}_b1",
+              "compile_s": printed(logs[mode], "seconds"),
+              "package_mb": os.path.getsize(path) / 1e6,
+              "extern_nodes": externs, "outputs": res.outputs,
+              "runner_vs_python_max_abs_diff": diffs,
+              "launches_per_call": per_call, "calls": res.calls,
+              "launches": launches, "nms_launch": shapes[0],
+              "valid_detections": int(ran["valid"].sum()),
+              "vs_eager": {"bit_equal": equal, "max_score_diff": s_err,
+                           "max_box_diff": b_err,
+                           "tolerance": _CPP_EAGER_TOL},
+              "vs_plain_kernels": {
+                  "what": "the runner's detections against the postprocess "
+                          "on the eager heads, nms_impl and gather_impl "
+                          "'plain'",
+                  "bit_equal": p_equal, "max_score_diff": p_s_err,
+                  "max_box_diff": p_b_err, "tolerance": _CPP_EAGER_TOL},
+              "timing_ms": timing,
+              "numerics": "cuDNN TF32 off, deterministic, no benchmark, "
+                          "both processes"})
+        del compiled
+
+    with open(packaging.dump_path()) as f:
+        text = f.read()
+    check("triton" in text, "dump_hlo(stage='optimized') on the card names "
+          "no Triton kernel")
+    emit({"phase": "cpp_runner_dump_hlo",
+          "seconds": printed(logs["reference"], "dump_hlo seconds"),
+          "chars": len(text),
+          "triton_kernels": sorted(set(re.findall(r"triton_\w+", text)))[:5]})
+    emit({"phase": "cpp_runner_done", "seconds": time.perf_counter() - t0})
+    return launches_by_path
+
+
 def main():
     import torch
 
@@ -4299,6 +4656,7 @@ def main():
     )
     from demonet_tpu_torch.ops.nms import (
         _kernel as nms_kernel,
+        kernel_launch_shape,
         launch_shape,
         nms_keep_batch,
         nms_keep_batch_plain,
@@ -4328,8 +4686,16 @@ def main():
     ptxas = {name: [ln.strip() for ln in _build.build_log(name).splitlines()
                     if "registers" in ln or "Compiling entry" in ln]
              for name in secs}
+    # K1's launch shape is csrc/nms.cu's choice, which both its callers
+    # (ops/nms.py, csrc/aoti_ops.cc) take; ops/nms.py tells it without the
+    # library, for reporting
+    nms_shapes = {k: kernel_launch_shape(k)
+                  for k in (1, 300, 512, 513, 2048, 8192, 8193, 20000)}
+    check(all(launch_shape(k) == s for k, s in nms_shapes.items()),
+          f"csrc/nms.cu's launch shapes {nms_shapes} != ops/nms.py's")
     emit({"phase": "build", "seconds": secs, "ptxas": ptxas,
-          "fused_block_usage": ptxas_usage(_build.build_log("fused_block"))})
+          "fused_block_usage": ptxas_usage(_build.build_log("fused_block")),
+          "nms_launch_shape": nms_shapes})
 
     thr = _NEG_INF / 2
     iou = 0.55
@@ -5078,11 +5444,22 @@ def main():
     # -- data parallelism: world 1 over NCCL, two ranks on the card, the CLI
     launches_by_path.update(distributed(trained, batches, sizes,
                                         reset_counts, read_counts))
-    # -- torch.export artifacts: K1 and K2 inside the exported programs ----
-    launches_by_path.update(export_artifacts(trained, random_init, batches,
-                                             reset_counts, read_counts))
-    # -- the Caffe export: hand-built, generic, the CLI's --verify --------
-    caffe_export(trained, reset_counts, read_counts)
+    # -- torch.export artifacts: K1 and K2 inside the exported programs;
+    # the C++ runner's build and packages compile beside this phase and
+    # the next (CppPackaging)
+    packaging = CppPackaging()
+    try:
+        packaging.start_build()
+        launches_by_path.update(export_artifacts(
+            trained, random_init, batches, reset_counts, read_counts,
+            packaging=packaging))
+        # -- the Caffe export: hand-built, generic, the CLI's --verify ----
+        caffe_export(trained, reset_counts, read_counts)
+        # -- the C++ runner: K1 and K2 launched from a process with no
+        # Python
+        launches_by_path.update(cpp_runner(trained, batches, packaging))
+    finally:
+        packaging.stop()
     for r in rows:
         r["launches"] = total_launches(r["name"])
         r["launches_by_path"] = by_path(r["name"])

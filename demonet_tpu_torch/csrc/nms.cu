@@ -510,6 +510,19 @@ int launch_sweep(const float* scores, const u64* mask, bool* keep, int p,
 
 }  // namespace
 
+// The launch for problems of k candidates, the one every caller takes: 1 =
+// block (k <= 512, many short problems), 2 = tiled (k <= 8,192), 3 = long.
+extern "C" int nms_launch_shape(int k) {
+  return k <= kBlockMaxK ? 1 : (k <= kMaxK ? 2 : 3);
+}
+
+// 64-bit words of scratch that `launch` needs over p problems of k
+// candidates: the (p, k, ceil(k / 64)) IoU bitmask, none for launch 1.
+extern "C" long long nms_scratch_words(int p, int k, int launch) {
+  if (launch == 1) return 0;
+  return static_cast<long long>(p) * k * ((k + kTile - 1) / kTile);
+}
+
 // boxes: (p, k, 4) f32, 16-byte aligned; scores: (p, k) f32; keep: (p, k)
 // bool; scratch: (p, k, ceil(k / 64)) u64 for launches 2 and 3, unused for
 // launch 1. All contiguous on the current device; stream is a cudaStream_t.

@@ -7,6 +7,9 @@
         bench_assets/ssdlite320_shapes_trained.npz --output m.pt2 --device cpu
     python -m demonet_tpu_torch.export.cli --model pelee304 --format caffe \
         --output deploy   # writes deploy.prototxt + deploy.caffemodel
+    python -m demonet_tpu_torch.export.cli --num-classes 91 --npz-weights \
+        bench_assets/ssdlite320_shapes_trained.npz --output m.pt2 \
+        --aoti m_aoti.pt2   # also the C++ runner's package
 
 The default format writes the `torch.export` program of preprocess ->
 model -> postprocess (`export/program.py`), the weights in it; reload it
@@ -24,18 +27,21 @@ raw heads (decode and NMS belong to the SSD fork's DetectionOutput).
 With `--bf16` the model computes in bf16; the hand-built graph writes its
 float32 parameters, as the JAX CLI writes its float32 variables.
 
+`--aoti PATH` also writes the C++ runner's artifact (the JAX CLI's
+`--mlir`): an AOTInductor package of the same program, compiled for the
+device (`export/aoti.py::package_detector`), which `csrc/aoti_runner.cc`
+runs with no Python; with `--raw-outputs` it holds the heads only.
+
 The flags are the JAX CLI's, plus `--device` (`cuda` by default; with no
 GPU it raises unless asked for `cpu`): the program runs on the device it
-was exported on, the hand-written kernels inside it on the card. Not
-ported: `--mlir` (StableHLO text for the C++ PJRT runner, ROADMAP item
-11c), which raises; `--platforms` is `--device` here.
+was exported on, the hand-written kernels inside it on the card.
+`--mlir` (StableHLO text for the PJRT runner) is `--aoti` here and
+`--platforms` is `--device`: both raise, naming their replacement.
 """
 
 from __future__ import annotations
 
 import argparse
-
-_NOT_PORTED = "not ported yet: ROADMAP item {}"
 
 
 def get_args_parser(add_help: bool = True) -> argparse.ArgumentParser:
@@ -66,9 +72,13 @@ def get_args_parser(add_help: bool = True) -> argparse.ArgumentParser:
                         "--device and assert it matches the model's "
                         "forward before writing the files")
     p.add_argument("--output", default="model.pt2")
+    p.add_argument("--aoti", default="",
+                   help="also write the C++ runner's artifact here: an "
+                        "AOTInductor package of the program for --device "
+                        "(export/aoti.py; run by csrc/aoti_runner.cc)")
     p.add_argument("--mlir", default="",
-                   help="raises: StableHLO text for the C++ PJRT runner ("
-                        + _NOT_PORTED.format("11c") + ")")
+                   help="raises: the PJRT runner's StableHLO text is the "
+                        "C++ runner's package here; use --aoti")
     p.add_argument("--platforms", default="",
                    help="raises: the program runs where it was exported; "
                         "use --device")
@@ -89,9 +99,11 @@ def get_args_parser(add_help: bool = True) -> argparse.ArgumentParser:
 
 def _refuse_unported(args) -> None:
     if args.mlir:
-        raise NotImplementedError(
-            "--mlir: StableHLO text for the C++ PJRT runner is "
-            + _NOT_PORTED.format("11c"))
+        raise ValueError("--mlir: the C++ runner takes an AOTInductor "
+                         "package, not StableHLO text; pass --aoti PATH")
+    if args.aoti and args.format == "caffe":
+        raise ValueError("--aoti packages the torch.export program; it "
+                         "does not go with --format caffe")
     if args.platforms:
         raise ValueError("--platforms: a torch.export program runs on the "
                          "device it was exported on; pass --device cuda or "
@@ -142,6 +154,11 @@ def main(args):
         postprocess_impl=args.postprocess)
     save_exported(exported, args.output)
     print(f"wrote {args.output}")
+    if args.aoti:
+        from demonet_tpu_torch.export.aoti import package_exported
+
+        package_exported(exported, args.aoti)
+        print(f"wrote {args.aoti}")
     return exported
 
 

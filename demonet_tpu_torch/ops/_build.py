@@ -105,13 +105,20 @@ def build_log(name: str) -> str:
         return f.read()
 
 
+def build(name: str) -> str:
+    """The path of the library of `csrc/<name>.cu`, built first if needed.
+    A program linked against it finds it through the rpath `BUILD_DIR`
+    (the C++ runner's ops library, `export/aoti.py`)."""
+    started = _start(name)
+    if started is not None:
+        _finish(name, started)
+    return library_path(name)
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of `csrc/<name>.cu`, built first if needed."""
     if name not in _loaded:
-        started = _start(name)
-        if started is not None:
-            _finish(name, started)
-        _loaded[name] = ctypes.CDLL(library_path(name))
+        _loaded[name] = ctypes.CDLL(build(name))
     return _loaded[name]
 
 

@@ -18,11 +18,13 @@ mask in a device-memory scratch that the wrapper allocates, built by a
 grid over 64 x 64 tiles on every SM, then swept by one warp per problem)
 and "long" (any K above; the same mask, swept by a block per problem
 that keeps the removed bitset in shared memory and reads the rows in
-64-bit column pieces). The wrapper takes the block launch up to
-K = 512, where there are many problems (the reference postprocess:
-P = B * 90, K = 300), the tiled one above, where there are few long ones
-(the fused path: P = B, K = 1,024 or 2,048), and the long one above
-8,192 (the public NMS of many boxes): `launch_shape(K)`. The tiled and
+64-bit column pieces). The kernel's own `nms_launch_shape`, which the
+wrapper and the C++ registration (csrc/aoti_ops.cc) both call, takes the
+block launch up to K = 512, where there are many problems (the reference
+postprocess: P = B * 90, K = 300), the tiled one above, where there are
+few long ones (the fused path: P = B, K = 1,024 or 2,048), and the long
+one above 8,192 (the public NMS of many boxes); `launch_shape(K)` tells
+the same without the built library. The tiled and
 long launches need P * K * ceil(K / 64) * 8 bytes of scratch
 (`scratch_bytes`: 50 MB at P = 1, K = 20,000); a problem whose scratch
 cannot be allocated raises MemoryError, saying so.
@@ -98,8 +100,28 @@ def _kernel():
     return fn
 
 
+@functools.lru_cache(maxsize=None)
+def _launch_choice():
+    """csrc/nms.cu's own choice: (nms_launch_shape, nms_scratch_words)."""
+    lib = _build.load("nms")
+    lib.nms_launch_shape.argtypes = [ctypes.c_int]
+    lib.nms_launch_shape.restype = ctypes.c_int
+    lib.nms_scratch_words.argtypes = [ctypes.c_int] * 3
+    lib.nms_scratch_words.restype = ctypes.c_longlong
+    return lib.nms_launch_shape, lib.nms_scratch_words
+
+
+def kernel_launch_shape(k: int) -> str:
+    """The launch that csrc/nms.cu takes for problems of K candidates (the
+    built library's `nms_launch_shape`; needs the card's toolchain)."""
+    code = _launch_choice()[0](k)
+    return next(name for name, c in _LAUNCH.items() if c == code)
+
+
 def launch_shape(k: int) -> str:
-    """The kernel's launch shape for problems of K candidates."""
+    """The kernel's launch shape for problems of K candidates, as
+    csrc/nms.cu's `nms_launch_shape` chooses it (`kernel_launch_shape`),
+    told here without the built library."""
     if k <= BLOCK_MAX_K:
         return "block"
     return "tiled" if k <= MAX_K else "long"
@@ -126,24 +148,25 @@ def nms_keep_batch_cuda(boxes: torch.Tensor, scores: torch.Tensor,
     if boxes.data_ptr() % 16:
         raise ValueError("nms_keep_batch: boxes must be 16-byte aligned")
     p, k, _ = boxes.shape
-    shape = launch_shape(k)
+    choose, scratch_words = _launch_choice()
+    launch = choose(k)
+    words = scratch_words(p, k, launch)
     keep = torch.empty((p, k), dtype=torch.bool, device=boxes.device)
     scratch = None
-    if shape != "block":   # the IoU bitmask: (P, K, ceil(K / 64)) words
+    if words:   # the IoU bitmask of the tiled and long launches
         try:
-            scratch = torch.empty((p, k, -(-k // WORD)), dtype=torch.int64,
+            scratch = torch.empty((words,), dtype=torch.int64,
                                   device=boxes.device)
         except torch.OutOfMemoryError as e:
             raise MemoryError(
                 f"nms_keep_batch: P={p} problems of K={k} need "
-                f"{scratch_bytes(p, k)} bytes of device scratch for the IoU "
+                f"{words * 8} bytes of device scratch for the IoU "
                 "bitmask, which cannot be allocated") from e
     with torch.cuda.device(boxes.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = _kernel()(boxes.data_ptr(), scores.data_ptr(), keep.data_ptr(),
                          None if scratch is None else scratch.data_ptr(),
-                         p, k, iou_threshold, score_threshold,
-                         _LAUNCH[shape], stream)
+                         p, k, iou_threshold, score_threshold, launch, stream)
     _build.check(code, "nms_keep_batch")
     nms_keep_batch.launches += 1
     nms_keep_batch.launches_by_k[k] += 1

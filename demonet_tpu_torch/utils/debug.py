@@ -13,20 +13,22 @@ gradients in the autograd graph).
     nested dicts and lists or a state_dict;
   * `annotate`: a named span in `torch.profiler` traces;
   * `graph_to_dot`: a module's or function's `torch.fx` graph as graphviz
-    dot text (the JAX package's jaxpr_to_dot).
-
-The JAX package's `dump_hlo` (compiler IR at a chosen stage) has no
-counterpart here short of `torch.export`: it waits for the export item of
-ROADMAP Queue 1.
+    dot text (the JAX package's jaxpr_to_dot);
+  * `dump_hlo`: the compiler's IR of a module or function at a chosen
+    stage, the JAX package's three stage names mapped onto `torch.export`
+    and Inductor.
 """
 
 from __future__ import annotations
 
 import contextlib
-from typing import Any, Callable, Dict, Iterator, List, Mapping, Tuple
+import os
+from typing import (Any, Callable, Dict, Iterator, List, Mapping, Optional,
+                    Tuple)
 
 import numpy as np
 import torch
+from torch import nn
 
 
 def _path(keys: Tuple[Any, ...]) -> str:
@@ -171,3 +173,64 @@ def graph_to_dot(fn: Any, *example_args: Any, max_nodes: int = 400) -> str:
                 lines.append(f"  {produced[src]} -> {name};")
     lines.append("}")
     return "\n".join(lines)
+
+
+class _Function(nn.Module):
+    """A plain function as a module, for `torch.export`."""
+
+    def __init__(self, fn: Callable):
+        super().__init__()
+        self.fn = fn
+
+    def forward(self, *args):
+        return self.fn(*args)
+
+
+def dump_hlo(fn: Callable, *example_args: Any, stage: str = "stablehlo",
+             path: Optional[str] = None) -> str:
+    """Dump the compiler IR of `fn` (a module or a function of tensors) at a
+    chosen stage. The JAX package's stage names, mapped:
+
+      * "jaxpr"     -- the `torch.export` FX graph: the traced program, as
+                       the jaxpr is JAX's traced IR;
+      * "stablehlo" -- the core-ATen graph after `run_decompositions()`:
+                       the portable IR an exported program ships, as
+                       StableHLO is what jax.export ships;
+      * "optimized" -- the code Inductor generates for the current device
+                       (the example arguments' device): the AOTInductor
+                       wrapper C++ and its kernel source -- C++ on the
+                       CPU; on the card the wrapper names the Triton
+                       kernels it launches.
+
+    Returns the text; also writes it to `path` when given. Any other stage
+    raises ValueError.
+    """
+    if stage not in ("jaxpr", "stablehlo", "optimized"):
+        raise ValueError(
+            f"stage must be jaxpr|stablehlo|optimized, got {stage!r}")
+    module = fn if isinstance(fn, nn.Module) else _Function(fn)
+    exported = torch.export.export(module, tuple(example_args))
+    if stage == "jaxpr":
+        text = str(exported)
+    elif stage == "stablehlo":
+        text = str(exported.run_decompositions())
+    else:
+        text = _inductor_code(exported)
+    if path is not None:
+        with open(path, "w") as f:
+            f.write(text)
+    return text
+
+
+def _inductor_code(exported: "torch.export.ExportedProgram") -> str:
+    """The source files of the program's AOTInductor package."""
+    import tempfile
+    import zipfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        package = torch._inductor.aoti_compile_and_package(
+            exported, package_path=os.path.join(tmp, "dump.pt2"))
+        with zipfile.ZipFile(package) as z:
+            names = sorted(n for n in z.namelist()
+                           if n.endswith((".cpp", ".py")))
+            return "\n".join(f"// {n}\n{z.read(n).decode()}" for n in names)

@@ -196,9 +196,14 @@ def test_cli_caffe_generic_verify(tmp_path, capsys, monkeypatch):
 
 
 def test_cli_caffe_mlir_still_refused(tmp_path):
-    with pytest.raises(NotImplementedError, match="11c"):
+    """The C++ runner's package (--aoti, the JAX --mlir) is of the
+    torch.export program: --format caffe refuses both flags."""
+    with pytest.raises(ValueError, match="--aoti"):
         _run("--format", "caffe", "--mlir", "m.mlir", "--output",
              str(tmp_path / "x"))
+    with pytest.raises(ValueError, match="--format caffe"):
+        _run("--format", "caffe", "--aoti", str(tmp_path / "x.pt2"),
+             "--output", str(tmp_path / "x"))
     assert not os.listdir(tmp_path)
 
 

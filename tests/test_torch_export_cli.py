@@ -3,10 +3,12 @@ demonet_tpu/export/cli.py), driven through `main` with `--device cpu`.
 
 Each weight flag (`--npz-weights`, `--checkpoint`, `--torch-weights`)
 puts its weights into the program: the reloaded artifact is bit-equal to
-the eager model loaded the same way. The flags of the parts not ported
-(the StableHLO text, `--platforms`) raise, naming what takes their
-place, and without a GPU the CLI raises unless asked for the CPU. The
-Caffe flags: tests/test_torch_caffe_cli.py.
+the eager model loaded the same way. `--aoti` also writes the C++
+runner's AOTInductor package, which the runner (built for the CPU) runs
+bit-equal to the Python call. The JAX flags with another name here
+(`--mlir` is `--aoti`, `--platforms` is `--device`) raise, naming theirs,
+and without a GPU the CLI raises unless asked for the CPU. The Caffe
+flags: tests/test_torch_caffe_cli.py.
 """
 
 import os
@@ -104,7 +106,8 @@ def test_cli_bf16_and_batch_size(tmp_path):
 
 
 @pytest.mark.parametrize("argv,error,names", [
-    pytest.param(["--mlir", "model.mlir"], NotImplementedError, "11c",
+    # the id is the one this case had while --mlir was not ported
+    pytest.param(["--mlir", "model.mlir"], ValueError, "--aoti",
                  id="argv3-NotImplementedError-11c"),
     pytest.param(["--platforms", "cpu"], ValueError, "--device",
                  id="argv4-ValueError---device"),
@@ -117,9 +120,30 @@ def test_cli_refuses_unported_flags(argv, error, names, tmp_path):
 
 def test_cli_help_names_what_replaces_each_flag():
     text = cli.get_args_parser().format_help()
-    for words in ("11c", "--device", "torch.cond", "caffemodel",
-                  "export/tracing.py", "export/caffe_eval.py"):
+    for words in ("--aoti", "export/aoti.py", "--device", "torch.cond",
+                  "caffemodel", "export/tracing.py", "export/caffe_eval.py"):
         assert words in text, words
+
+
+def test_cli_aoti_writes_a_package_the_runner_runs(tmp_path):
+    """--aoti with --raw-outputs: a package of the heads, which the C++
+    runner runs bit-equal to its Python call."""
+    from demonet_tpu_torch.export import aoti
+
+    package = str(tmp_path / "heads_aoti.pt2")
+    _run("--device", "cpu", "--num-classes", "5", "--raw-outputs",
+         "--output", str(tmp_path / "heads.pt2"), "--aoti", package)
+    shape = (1, 320, 320, 3)
+    x = _frames(seed=3).numpy()
+    x.tofile(str(tmp_path / "in.bin"))
+    result = aoti.run_runner(aoti.build_runner("cpu"), package, shape,
+                             iters=1, input_file=str(tmp_path / "in.bin"),
+                             dump_out=str(tmp_path / "out"),
+                             threads=torch.get_num_threads())
+    assert result.outputs == [((1, 3234, 5), "Float"),
+                              ((1, 3234, 4), "Float")]
+    assert result.launches == {"nms_keep_batch": 0, "gather_rows_batch": 0}
+    assert aoti.check_parity(package, str(tmp_path / "out"), x) == [0.0] * 2
 
 
 def test_cli_without_gpu_needs_device_cpu(monkeypatch, tmp_path):

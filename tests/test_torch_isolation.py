@@ -18,18 +18,20 @@ from demonet_tpu_torch.models.builders import (
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # `import jax`, `from jax...`, optax, orbax, any flax, or the JAX package
-# by name; the port's own name `demonet_tpu_torch` does not match
+# by name; the port's own name `demonet_tpu_torch` does not match; in C++,
+# an XLA or PJRT header
 _FORBIDDEN = re.compile(
     r"^\s*(import|from)\s+(jax\b|flax\b|optax\b|orbax\b"
     r"|demonet_tpu(?!_torch)\b)"
-    r"|\bflax\b|\bdemonet_tpu\.", re.MULTILINE)
+    r"|\bflax\b|\bdemonet_tpu\."
+    r"|^\s*#\s*include\s*[<\"](xla|tsl|pjrt)/", re.MULTILINE)
 
 
 def _port_sources():
     root = os.path.join(_REPO, "demonet_tpu_torch")
     for d, _, files in os.walk(root):
         for f in files:
-            if f.endswith((".py", ".cu", ".cuh")):
+            if f.endswith((".py", ".cu", ".cuh", ".cc")):
                 yield os.path.join(d, f)
     yield os.path.join(_REPO, "chip_smoke.py")
 
@@ -47,7 +49,8 @@ def test_import_pulls_in_no_jax():
         "data.native", "utils.torch_weights", "utils.pretrained", "utils.viz",
         "utils.debug", "hub", "predict", "eval_voc", "train",
         "ops.library", "export", "export.program", "export.cli",
-        "export.caffe", "export.caffe_eval", "export.tracing"))
+        "export.caffe", "export.caffe_eval", "export.tracing",
+        "export.aoti"))
     code = (f"import demonet_tpu_torch, {modules}; import sys; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'optax', 'orbax', 'demonet_tpu', 'triton')]; "
@@ -101,11 +104,14 @@ def test_scan_pattern_catches_what_it_should():
     for bad in ("import jax\n", "from jax import numpy\n",
                 "import flax.linen\n", "from demonet_tpu.ops import nms\n",
                 "x = demonet_tpu.models\n", "import optax\n",
-                "from orbax import checkpoint\n"):
+                "from orbax import checkpoint\n",
+                '#include "xla/pjrt/c/pjrt_c_api.h"\n'):
         assert _FORBIDDEN.search(bad), bad
     for fine in ("import demonet_tpu_torch\n",
                  "from demonet_tpu_torch.ops import nms\n",
-                 "# counterpart of demonet_tpu/ops/nms.py\n"):
+                 "# counterpart of demonet_tpu/ops/nms.py\n",
+                 "#include <torch/library.h>\n",
+                 "// counterpart of cpp/pjrt_runner.cc\n"):
         assert not _FORBIDDEN.search(fine), fine
 
 
