@@ -61,7 +61,8 @@ package. The script prints one JSON line per phase:
                versions on the same head outputs, bit-equal
   e2e          predict img/s at b32 and b128 for each postprocess mode,
                with a forward/postprocess split, and the cost of the fused
-               path's host read
+               path's host read; the seconds of each part of the kernel
+               timings (`timing_seconds`)
   trace_b128   where the device time of a b128 predict goes, per mode
   families     one line per other detector family (family_detectors:
                seeded random weights; the BN families' statistics
@@ -107,6 +108,15 @@ package. The script prints one JSON line per phase:
                an epoch and its evaluation; K1 and K2 launches counted
                over each evaluation (reset before, read after, > 0 or
                fail); epoch and eval img/s; the step's pageable copy
+  overfit      the learning acceptance (tools/overfit_smoke_torch.py) at
+               its defaults: the flagship at 128x128 with 3 classes trains
+               300 steps from seed 0 on 32 synthetic images at b16, then
+               the predict step evaluates them: AP50 >= 0.5, every logged
+               loss finite and falling, K1 and K2 launched by the
+               evaluation alone (counts reset before, read after), and on
+               its first batch K1 (P = 48, K = 50) and K2 bit-equal to
+               their plain versions, the evaluation's detections bit-equal
+               to those of the plain K1 and K2
   entry_points the entry points a user reaches first: the trained
                npz as a reference .pth through `hub.load` (detections
                bit-equal to the npz model's on the 4 batches); the predict
@@ -1682,6 +1692,13 @@ def families(reset_counts, read_counts):
                              device="cuda")
 
         # -- predict, mode by mode, counted -------------------------------
+        # each request's head outputs and reference postprocess, which
+        # every mode's detections are held to
+        with torch.inference_mode():
+            heads = [det.model(preprocess(x, cfg, resize=False)) for x in xs]
+            refs = [postprocess_detections(o["cls_logits"],
+                                           o["bbox_regression"], anchors,
+                                           cfg, sizes) for o in heads]
         paths = {}
         for mode, kw in _FAMILY_MODES.items():
             step = make_predict_step(det, **kw)
@@ -1714,13 +1731,11 @@ def families(reset_counts, read_counts):
                       f"{name} {mode}: detections")
                 n_valid.append(int(v.sum()))
             same = True
-            for x in xs:
+            for o, ref in zip(heads, refs):
                 with torch.inference_mode():
-                    o = det.model(preprocess(x, cfg, resize=False))
-                    args = (o["cls_logits"], o["bbox_regression"], anchors,
-                            cfg, sizes)
-                    ref = postprocess_detections(*args)
-                    got = postprocess_detections(*args, **kw)
+                    got = postprocess_detections(
+                        o["cls_logits"], o["bbox_regression"], anchors, cfg,
+                        sizes, **kw)
                 same &= all(torch.equal(got[key], ref[key]) for key in ref)
             check(same, f"{name} {mode}: detections != the reference "
                   "postprocess's on the same head outputs")
@@ -1732,6 +1747,7 @@ def families(reset_counts, read_counts):
                            **({"branches": taken} if mode == "fused"
                               else {})}
 
+        del heads, refs
         lap("predict_modes_checked")
 
         # -- the kernels on the model's own rows ---------------------------
@@ -1794,7 +1810,7 @@ def families(reset_counts, read_counts):
         bms, by = bound(nbytes, ops)
         t_k = timed(lambda: nms_keep_batch(nb, ns, cfg.nms_thresh, thr), 20)
         t_p = timed(lambda: nms_keep_batch_plain(nb, ns, cfg.nms_thresh, thr),
-                    2, 1)
+                    1, 0)
         kernels["nms_keep_batch"][name] = {
             "shape": list(ns.shape), "launch": launch_shape(k),
             "ms": t_k["ms"], "plain_ms": t_p["ms"], "bound_ms": bms,
@@ -1849,7 +1865,12 @@ def families(reset_counts, read_counts):
                     del seen
             for mode, kw in _FAMILY_MODES.items():
                 step = make_predict_step(det, **kw)
-                step(det.model, x, sz)
+                # the forward at this batch ran just above: the mode's
+                # postprocess is warmed alone
+                with torch.inference_mode():
+                    postprocess_detections(o["cls_logits"],
+                                           o["bbox_regression"], anchors,
+                                           cfg, sz, **kw)
                 torch.cuda.synchronize()
                 branches.clear()
                 per_batch = []
@@ -2164,6 +2185,130 @@ def cli_synthetic(reset_counts, read_counts):
           "j2_train_batches_bit_equal": True, "j2_policy": policy,
           "j2_loader_seconds": pool_s,
           "h2d_copy_pageable_b32": copy_ms})
+
+
+# -- the overfit acceptance ---------------------------------------------------
+# the port's twin of tools/overfit_smoke.py, run at its defaults (300 steps,
+# 128x128, 32 images, b16, lr 0.05) and held to its gate
+_OVERFIT_TOOL = os.path.join(_HERE, "tools", "overfit_smoke_torch.py")
+
+
+def overfit_tool():
+    """tools/overfit_smoke_torch.py as a module (tools/ is no package)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("overfit_smoke_torch",
+                                                  _OVERFIT_TOOL)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod   # its dataclass looks its module up
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def overfit(reset_counts, read_counts):
+    """overfit: the learning acceptance (tools/overfit_smoke_torch.py,
+    `run`) in process on the card at the tool's defaults: the flagship at
+    128x128 with 3 classes from seed 0 trains 300 steps on 32 synthetic
+    images, then the predict step evaluates them (COCO AP50, the tool's
+    gate 0.5). The counts are reset before the run and read after it: the
+    training launches no kernel, the evaluation K1 once and K2 twice a
+    batch. Every logged loss finite and the last below the first. On the
+    first evaluation batch, K1 (P = 16 x 3 problems of K = 50) and K2
+    against their plain versions on the same head outputs, bit-equal, and
+    the evaluation's detections of those images bit-equal to the predict
+    step's with K1 and K2 in their plain versions."""
+    import numpy as np
+    import torch
+
+    from demonet_tpu_torch.data.loader import DetectionLoader
+    from demonet_tpu_torch.engine.evaluate import detections_to_numpy
+    from demonet_tpu_torch.models.detection import (
+        _NEG_INF,
+        postprocess_detections,
+        preprocess,
+    )
+    from demonet_tpu_torch.ops.gather import (
+        gather_rows_batch,
+        gather_rows_batch_plain,
+    )
+    from demonet_tpu_torch.ops.nms import (
+        launch_shape,
+        nms_keep_batch,
+        nms_keep_batch_plain,
+    )
+
+    t0 = time.perf_counter()
+    tool = overfit_tool()
+    args = tool.get_args_parser().parse_args([])
+    reset_counts()
+    out = tool.run(args)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    n_eval = -(-args.num_images // args.batch_size)
+    want = {"nms_keep_batch": n_eval, "gather_rows_batch": 2 * n_eval,
+            "topk_sparse": 0, "topk_sparse_long": 0,
+            "fused_inverted_residual": 0}
+    check(counts == want, f"overfit: launches {counts}, want {want}")
+    losses = [loss for _, loss, _ in out["losses"]]
+    check(len(losses) == args.steps // 50
+          and all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"overfit: logged losses {losses}")
+    check(out["ap50"] >= args.min_ap50,
+          f"overfit: AP50 {out['ap50']} below {args.min_ap50}")
+
+    # the first evaluation batch again: kernels against plain versions
+    recipe = out["recipe"]
+    det, cfg = recipe.detector, recipe.detector.config
+    anchors = torch.as_tensor(det.anchors, device=det.device)
+    batch = next(iter(DetectionLoader(recipe.dataset, args.batch_size,
+                                      image_size=cfg.size, prefetch=0)))
+    x = torch.as_tensor(batch["images"]).cuda()
+    sz = torch.as_tensor(batch["original_sizes"]).cuda()
+    det.model.eval()
+    with torch.inference_mode():
+        o = det.model(preprocess(x, cfg, resize=False))
+        cand = head_to_candidates(det, o)
+        args_pp = (o["cls_logits"], o["bbox_regression"], anchors, cfg, sz)
+        got = postprocess_detections(*args_pp)
+        plain = postprocess_detections(*args_pp, nms_impl="plain",
+                                       gather_impl="plain")
+        nb, ns = cand["cand_boxes"], cand["cand_sc"]
+        thr = _NEG_INF / 2
+        keep = nms_keep_batch(nb, ns, cfg.nms_thresh, thr)
+        p_keep = nms_keep_batch_plain(nb, ns, cfg.nms_thresh, thr)
+        g = gather_rows_batch(cand["boxes"].contiguous(), cand["top_idx"])
+        p_g = gather_rows_batch_plain(cand["boxes"].contiguous(),
+                                      cand["top_idx"])
+    torch.cuda.synchronize()
+    record_err(("nms_keep_batch", "nms_keep_batch/overfit"), keep, p_keep)
+    record_err(("gather_rows_batch", "gather_rows_batch/overfit"), g, p_g)
+    check(torch.equal(keep, p_keep), "overfit: K1 != plain at "
+          f"P={ns.shape[0]}, K={ns.shape[1]}")
+    check(torch.equal(g, p_g), "overfit: K2 != plain (candidate gather)")
+    check(all(torch.equal(got[k], plain[k]) for k in plain),
+          "overfit: detections with K1 and K2 != with their plain versions")
+    ev = out["evaluator"]
+    seen = detections_to_numpy(plain, np.asarray(batch["image_ids"]))
+    same = all(np.array_equal(ev.detections[r["image_id"]][key],
+                              np.asarray(r[key], np.float64 if key != "labels"
+                                         else np.int64))
+               for r in seen for key in ("boxes", "scores", "labels"))
+    check(same, "overfit: the evaluation's detections of the first batch "
+          "!= the predict step's with plain K1 and K2")
+    emit({"phase": "overfit", "tool": "tools/overfit_smoke_torch.py",
+          "steps": args.steps, "size": args.size,
+          "images": args.num_images, "batch": args.batch_size,
+          "lr": args.lr, "ap50": out["ap50"], "min_ap50": args.min_ap50,
+          "stats": ev.stats.tolist(), "losses": out["losses"],
+          "ms_per_step": out["ms_per_step"],
+          "train_seconds": out["train_seconds"],
+          "eval_seconds": out["eval_seconds"], "launches": counts,
+          "nms_problems": list(ns.shape), "nms_launch": launch_shape(
+              ns.shape[1]),
+          "first_batch_detections": int(plain["valid"].sum()),
+          "kernels_bit_equal_to_plain": True,
+          "seconds": time.perf_counter() - t0})
+    return {"overfit/evaluate": counts}
 
 
 # -- the other entry points ---------------------------------------------------
@@ -2552,7 +2697,7 @@ def entry_points(trained, batches, sizes, reset_counts, read_counts):
             # launch-bound: CUDA events over one call (a profiler trace
             # of its ~10^5 launches costs tens of seconds)
             plain_ms = cuda_ms(lambda: nms_keep_batch_plain(
-                b1, s1, _PUBLIC_NMS_IOU, thr), 1, 1 if n <= 4096 else 0)
+                b1, s1, _PUBLIC_NMS_IOU, thr), 1, 0)
             api_ms = {api: timed(lambda fn=fn: fn(b, s, lab), 20)["ms"]
                       for api, fn in apis.items()}
             public[name] = {
@@ -5171,13 +5316,15 @@ def main():
     def by_path(name):
         return {p: c[name] for p, c in launches_by_path.items() if c[name]}
 
-    def nms_row(bx, sc, plain_iters, tiled_too=False):
+    def nms_row(bx, sc, tiled_too=False):
         keep = nms_keep_batch(bx, sc, iou, thr)
         nbytes, ops = nms_work(keep, sc, thr)
         bms, by = bound(nbytes, ops)
         k_t = timed(lambda: nms_keep_batch(bx, sc, iou, thr), 50)
-        p_t = timed(lambda: nms_keep_batch_plain(bx, sc, iou, thr),
-                    plain_iters, 1)
+        # the plain version issues ~10 launches a candidate: one call,
+        # already warm from check_nms on these inputs (a profiled call
+        # costs seconds at K = 2,048)
+        p_t = timed(lambda: nms_keep_batch_plain(bx, sc, iou, thr), 1, 0)
         row = {"shape": list(sc.shape), "launch": launch_shape(sc.shape[1]),
                "ms": k_t["ms"], "plain_ms": p_t["ms"], "bound_ms": bms,
                "bound_by": by, "library_ms": None, "bytes": nbytes,
@@ -5188,23 +5335,32 @@ def main():
                                            50)["ms"]
         return row
 
+    # seconds of each part of the timings, on the e2e line
+    t_mark, timing_s = time.perf_counter(), {}
+
+    def lap(what):
+        nonlocal t_mark
+        now = time.perf_counter()
+        timing_s[what] = now - t_mark
+        t_mark = now
+
     tier_counts = {r: fused_branches.count(f"tier_{r}") for r in (1024, 2048)}
     rows = []
-    nms_rows = {name: nms_row(c["cand_boxes"], c["cand_sc"], 3,
-                              tiled_too=True)
+    nms_rows = {name: nms_row(c["cand_boxes"], c["cand_sc"], tiled_too=True)
                 for name, (_, c) in regimes.items()}
     nms_fused = {}
     for r, f in fused_in.items():
-        nms_fused[f"K{r}"] = {**nms_row(*f["nms"], 2),
+        nms_fused[f"K{r}"] = {**nms_row(*f["nms"]),
                               "max_abs_err":
                                   _MAX_ERR[f"nms_keep_batch/K{r}"],
                               "launches": tier_counts[r],
                               "launches_from": "fused path, batches on "
                                                f"tier {r}"}
     for r, f in fused_random.items():
-        nms_fused[f"K{r}_random_weights"] = nms_row(*f["nms"], 1)
+        nms_fused[f"K{r}_random_weights"] = nms_row(*f["nms"])
     for r, f in fused_dense.items():
-        nms_fused[f"K{r}_random_all_valid"] = nms_row(*f, 1)
+        nms_fused[f"K{r}_random_all_valid"] = nms_row(*f)
+    lap("nms")
     main = nms_rows["trained"]
     rows.append({
         "name": "nms_keep_batch", "route": "cuda",
@@ -5245,6 +5401,7 @@ def main():
         "bit_equal": True, **total, "bound_by": "bytes",
         "per_predict": "candidate + final gather", "calls": calls,
         "fused_path_shapes": g_fused})
+    lap("gather")
 
     def topk_row(rows_in, scores_bac):
         nbytes, ops = topk_work(rows_in, _TOPK_K, st)
@@ -5293,6 +5450,7 @@ def main():
                       "max_abs_err": _MAX_ERR["topk_sparse_long"],
                       "k": _TOPK_K, "slots": _TOPK_SLOTS,
                       **topk_long_times}})
+    lap("topk")
 
     # K4 with the L2 flushed before each call (block 2's 20 MB input would
     # stay in the 50 MB L2 otherwise), the flush left out of the time
@@ -5316,8 +5474,19 @@ def main():
     blocks = [block_row(f"v3l_{i}", native[i], folded[i],
                         lambda i=i: trunk.blocks[i](native[i]))
               for i in range(3)]
-    other_rows = [block_row(name, x_o, f_o, lambda m=mod, x=x_o: m(x))
-                  for name, (x_o, f_o, mod) in others.items()]
+    lap("fused_block_v3l")
+    # blocks of one shape (ci, ce, co, h, w, stride, act) take the same
+    # time: each shape is timed once, on its first block
+    shapes = {}
+    for (name, *shape) in contract_blocks():
+        shapes.setdefault(tuple(shape), []).append(name)
+    other_rows = []
+    for names in shapes.values():
+        x_o, f_o, mod = others[names[0]]
+        other_rows.append({**block_row(names[0], x_o, f_o,
+                                       lambda m=mod, x=x_o: m(x)),
+                           "blocks_of_this_shape": names})
+    lap("fused_block_other_shapes")
     b_sum = {key: sum(c[key] for c in blocks)
              for key in ("ms", "plain_ms", "library_ms", "bound_ms",
                          "bound_fp32_fma_ms")}
@@ -5386,8 +5555,10 @@ def main():
                 **({"branches": dict(branches),
                     "guard_host_read_ms": guard_ms} if mode == "fused"
                    else {})}
+        lap(f"closed_loop_b{bs}")
     emit({"phase": "e2e", "weights": "trained", "images": "shapes, seeded",
-          **e2e, "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30})
+          **e2e, "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+          "timing_seconds": timing_s})
 
     # where the device time of a b128 predict goes, and how idle it is
     for mode in ("reference", "fused"):
@@ -5430,6 +5601,8 @@ def main():
           f"the train step launched kernels: {read_counts()}")
     train_loop()
     cli_synthetic(reset_counts, read_counts)
+    # -- the learning acceptance: 300 steps, then AP50 through K1 and K2
+    launches_by_path.update(overfit(reset_counts, read_counts))
     entry = entry_points(trained, batches, sizes, reset_counts, read_counts)
     launches_by_path.update(entry["launches_by_path"])
     # -- bf16 compute and remat: serving, training, the families, the CLI

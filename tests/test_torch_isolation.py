@@ -34,6 +34,7 @@ def _port_sources():
             if f.endswith((".py", ".cu", ".cuh", ".cc")):
                 yield os.path.join(d, f)
     yield os.path.join(_REPO, "chip_smoke.py")
+    yield os.path.join(_REPO, "tools", "overfit_smoke_torch.py")
 
 
 def test_import_pulls_in_no_jax():
