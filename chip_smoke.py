@@ -219,6 +219,17 @@ package. The script prints one JSON line per phase:
                the export phase's b1 program and the eager step; and
                dump_hlo(stage="optimized") on the card naming a Triton
                kernel
+  profile_tools  the port's profiling tools on the flagship from the
+               trained npz at b32: tools/profile_model_torch.py traces 5
+               predict calls (reference, fp32) and 5 train steps (bf16),
+               tools/trace_op_stats_torch.py splits each trace (device
+               busy ms and idle share, categories, K1 and K2 launches per
+               iteration: 1 and 2 a predict call, equal to the wrappers'
+               counts over the traced calls, none in training; busy time
+               within 10 % of trace_calls' on the same step), and
+               tools/roofline_report_torch.py gives each step's floor on
+               the H100's peaks beside the measured step; the train step
+               also fed from host memory, as the train CLI's loader does
   launch_floor the device time of a one-float fill, the shortest kernel
 
 then `previous_design` (K1's, K3's and K4's times before their
@@ -2309,6 +2320,160 @@ def overfit(reset_counts, read_counts):
           "kernels_bit_equal_to_plain": True,
           "seconds": time.perf_counter() - t0})
     return {"overfit/evaluate": counts}
+
+
+# -- the profiling tools ------------------------------------------------------
+_TOOLS = os.path.join(_HERE, "tools")
+_PROFILE_DIR = os.path.join(_HERE, "runs", "chip_smoke_profile")
+_PROFILE_ITERS = 5
+_PROFILE_BUSY_RTOL = 0.10
+_PROFILE_BATCH = 32
+
+
+def tool_module(name):
+    """tools/<name>.py as a module (tools/ is no package)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(_TOOLS, f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def closed_loop_ms(fn, n):
+    """Median ms of n calls of fn(), each waited for on the card, with no
+    profiler on."""
+    import numpy as np
+    import torch
+
+    torch.cuda.synchronize()
+    ms = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(ms))
+
+
+def profile_tools(card, reset_counts, read_counts):
+    """profile_tools: the three profiling tools on the flagship's predict
+    (reference, fp32) and train (bf16) steps at b32 from the trained npz.
+    For each step: the profile tool's trace of 5 calls after its warm-up,
+    the stats tool's split of it, trace_calls' closed loop on the same
+    step (wall, busy; the profiler's own cost is in its wall time), the
+    median of 5 calls with no profiler on, and the roofline tool's floor
+    beside that median. The predict trace holds K1 once and K2 twice a
+    call, equal to the wrappers' counts over the traced calls (the train
+    trace none); the stats' busy ms a call within 10 % of trace_calls'. The counts are
+    reset before each step's runs and read after. The train step fed its
+    batch from host memory, as the train CLI's loader does, is timed
+    beside it. The traces are deleted after reading."""
+    import shutil
+
+    import torch
+
+    t0 = time.perf_counter()
+    profile = tool_module("profile_model_torch")
+    stats_tool = tool_module("trace_op_stats_torch")
+    roofline = tool_module("roofline_report_torch")
+    launches, steps = {}, {}
+    for mode, extra in (("predict", []), ("train", ["--bf16"])):
+        t_step = time.perf_counter()
+        args = profile.get_args_parser().parse_args(
+            ["--mode", mode, "--batch-size", str(_PROFILE_BATCH),
+             "--iters", str(_PROFILE_ITERS), "--npz-weights", _NPZ,
+             "--logdir", _PROFILE_DIR, *extra])
+        want = ({"nms_keep_batch": 1, "gather_rows_batch": 2}
+                if mode == "predict" else {})
+        dtype = "bf16" if args.bf16 else "fp32"
+        reset_counts()
+        device, run = profile.build_step(args)
+        # the profiler on the card's machine drops a short kernel from a
+        # trace now and then (`timed`): a trace whose counts are off is
+        # taken again, up to 3 times
+        t_trace = t_stats = 0.0
+        for attempt in range(1, 4):
+            t_mark = time.perf_counter()
+            prof = profile.trace_step(run, device, args)
+            t_mid = time.perf_counter()
+            st = stats_tool.summarize(prof["trace"], _PROFILE_ITERS, top=5)
+            t_trace += t_mid - t_mark
+            t_stats += time.perf_counter() - t_mid
+            in_trace = st["hand_written_launches_per_iter"]
+            by_counter = {k: v / _PROFILE_ITERS
+                          for k, v in prof["launches"].items()}
+            if in_trace == by_counter:
+                break
+        tr = trace_calls(run, n=_PROFILE_ITERS)
+        step_ms = closed_loop_ms(run, _PROFILE_ITERS)
+        launches[f"profile_tools/{mode}"] = counts = read_counts()
+        for name in by_counter:
+            check(in_trace[name] == by_counter[name] == want.get(name, 0),
+                  f"profile_tools/{mode}: {name} {in_trace[name]} a call in "
+                  f"the trace, {by_counter[name]} by its wrapper's count, "
+                  f"want {want.get(name, 0)}")
+        busy, busy_ref = st["device_busy_ms_per_iter"], tr["device_busy_ms"]
+        check(abs(busy - busy_ref) <= _PROFILE_BUSY_RTOL * busy_ref,
+              f"profile_tools/{mode}: the stats' busy {busy:.3f} ms a call "
+              f"is not within 10 % of trace_calls' {busy_ref:.3f} ms")
+        check(st["gflop_per_iter"] > 0,
+              f"profile_tools/{mode}: no flops attributed to a kernel")
+        roof_mode = "train" if mode == "train" else "infer"
+        records, input_bytes, counted = roofline.leaf_records(
+            args.model, args.num_classes, _PROFILE_BATCH, dtype, roof_mode)
+        _, floor = roofline.roofline(records, input_bytes, dtype, roof_mode,
+                                     measured=step_ms)
+        step = {
+            "dtype": dtype,
+            "device_busy_ms_per_iter": busy,
+            "device_idle_share": st["device_idle_share"],
+            "traced_window_ms_per_iter": st["window_ms_per_iter"],
+            "gflop_per_iter_attributed": st["gflop_per_iter"],
+            "tflops_per_s": st["tflops_per_s"],
+            "categories": {k: {q: c[q] for q in (
+                "ms_per_iter", "share", "launches_per_iter",
+                "tflops_per_s")} for k, c in st["categories"].items()},
+            "top_kernels": [{**k, "name": k["name"][:120]}
+                            for k in st["top"]],
+            "hand_written_launches_per_iter": in_trace,
+            "wrapper_launches_per_iter": by_counter,
+            "closed_loop_ms_median": step_ms,
+            "trace_calls": {k: tr[k] for k in (
+                "wall_ms", "device_busy_ms", "device_idle_share")},
+            "busy_vs_trace_calls": busy / busy_ref - 1,
+            "roofline": {k: floor[k] for k in (
+                "flops", "tensor_core_ms", "hbm_unfused_ms", "hbm_fused_ms",
+                "speed_of_light_ms", "bound_by", "measured_ms",
+                "share_of_speed_of_light")},
+            "flops_counted": counted, "events_with_flops":
+            prof["events_with_flops"], "launches": counts,
+            "trace_attempts": attempt,
+            "seconds": {"trace": t_trace, "stats": t_stats,
+                        "all": time.perf_counter() - t_step}}
+        if mode == "train":
+            args.host_batch = True
+            _, run_host = profile.build_step(args)
+            run_host()
+            step["host_batch_closed_loop_ms_median"] = closed_loop_ms(
+                run_host, _PROFILE_ITERS)
+            check(not any(read_counts().values()),
+                  f"profile_tools/train: the train steps launched kernels: "
+                  f"{read_counts()}")
+        steps[mode] = step
+        del run
+        torch.cuda.empty_cache()
+    shutil.rmtree(_PROFILE_DIR, ignore_errors=True)
+    emit({"phase": "profile_tools", "card": card, "batch": _PROFILE_BATCH,
+          "iters": _PROFILE_ITERS, "weights": "trained npz",
+          "tools": ["tools/profile_model_torch.py",
+                    "tools/trace_op_stats_torch.py",
+                    "tools/roofline_report_torch.py"],
+          "peaks": {"flops": roofline.PEAK_FLOPS["bf16"],
+                    "bytes_per_s": roofline.PEAK_BW}, **steps,
+          "seconds": time.perf_counter() - t0})
+    return launches
 
 
 # -- the other entry points ---------------------------------------------------
@@ -5633,6 +5798,8 @@ def main():
         launches_by_path.update(cpp_runner(trained, batches, packaging))
     finally:
         packaging.stop()
+    # -- the profiling tools on the flagship's predict and train steps
+    launches_by_path.update(profile_tools(card, reset_counts, read_counts))
     for r in rows:
         r["launches"] = total_launches(r["name"])
         r["launches_by_path"] = by_path(r["name"])

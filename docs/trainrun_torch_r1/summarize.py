@@ -26,15 +26,30 @@ import sys
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _DOCS = os.path.dirname(_HERE)
+# each family's test-only runs beside its stage 1 and stage 2
 _FAMILIES = {"ssdlite": ("testonly", "testonly_fused"),
-             "pelee": ("testonly",)}
+             "pelee": ("testonly",),
+             "sslv2": ("testonly",),
+             "vgg300": ("testonly", "testonly_fused"),
+             "vgg512": ("testonly",)}
+
+
+def _jax_logs(folder, prefix):
+    return [os.path.join(_DOCS, folder, f"{prefix}_{s}.log")
+            for s in ("stage1", "stage2", "testonly")]
+
+
 # the JAX package's runs of the same protocol on the TPU (a reference,
-# not a target): stage 1, stage 2 and test-only logs
+# not a target): stage 1, stage 2 and test-only logs. ssd512_vgg16's JAX
+# stage 2 was stopped in epoch 17 (its last evaluation is epoch 16's),
+# and its test-only stage read checkpoint_16, not checkpoint_23
+# (docs/trainrun_r5/TRAINRUN.md).
 _JAX_LOGS = {
-    "ssdlite": [os.path.join(_DOCS, "trainrun_r3", f"shapes_r3_{s}.log")
-                for s in ("stage1", "stage2", "testonly")],
-    "pelee": [os.path.join(_DOCS, "trainrun_r5", f"pelee_{s}.log")
-              for s in ("stage1", "stage2", "testonly")],
+    "ssdlite": _jax_logs("trainrun_r3", "shapes_r3"),
+    "pelee": _jax_logs("trainrun_r5", "pelee"),
+    "sslv2": _jax_logs("trainrun_r5", "sslv2"),
+    "vgg300": _jax_logs("trainrun_r4", "vgg_r4"),
+    "vgg512": _jax_logs("trainrun_r5", "vgg512"),
 }
 _SUMMARY = re.compile(r"^ Average (Precision|Recall) .* = (-?\d+\.\d+)$")
 _EPOCH_TOTAL = re.compile(
@@ -192,8 +207,9 @@ def main(argv=None) -> int:
     result = {}
     card = os.path.join(args.log_dir, "card.log")
     if os.path.exists(card):
+        # one line a call of run.sh: the families it ran and the card
         with open(card) as f:
-            result["card"] = f.read().strip()
+            result["card"] = [ln.strip() for ln in f if ln.strip()]
     for name, test_only in _FAMILIES.items():
         if os.path.exists(os.path.join(args.log_dir, f"{name}_stage1.log")):
             result[name] = family(args.log_dir, name, test_only)

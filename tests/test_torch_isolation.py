@@ -34,7 +34,9 @@ def _port_sources():
             if f.endswith((".py", ".cu", ".cuh", ".cc")):
                 yield os.path.join(d, f)
     yield os.path.join(_REPO, "chip_smoke.py")
-    yield os.path.join(_REPO, "tools", "overfit_smoke_torch.py")
+    for tool in ("overfit_smoke_torch", "profile_model_torch",
+                 "trace_op_stats_torch", "roofline_report_torch"):
+        yield os.path.join(_REPO, "tools", f"{tool}.py")
 
 
 def test_import_pulls_in_no_jax():

@@ -10,11 +10,14 @@ COCO stats must equal stage 2's last evaluation bit for bit with the
 reference postprocess, with `--postprocess fused` and with `-j 2`.
 
 run.sh runs here with `python` and `nvidia-smi` replaced by stand-ins
-that record their arguments: every `demonet_tpu_torch.train` invocation
-must parse with the port's parser, carry its family's recipe
-(docs/trainrun_r3/TRAINRUN.md for the flagship, docs/trainrun_r5/run.sh
-for pelee304), and each `--resume` must name the
-`checkpoint_{epochs - 1}` of the stage before it.
+that record their arguments (the `python` stand-in also makes the
+checkpoint directories a training stage would write): every
+`demonet_tpu_torch.train` invocation must parse with the port's parser,
+carry its family's recipe (docs/trainrun_r3/TRAINRUN.md for the
+flagship, docs/trainrun_r5/run.sh for pelee304, ssd_lite_mobilenet_v2
+and ssd512_vgg16, docs/trainrun_r4/TRAINRUN.md for ssd300_vgg16), each
+`--resume` must name the `checkpoint_{epochs - 1}` of the stage before
+it, only the last checkpoint may be left, and card.log gains one line.
 
 The committed logs of its run on the GPU pass the protocol's gates as
 docs/trainrun_torch_r1/summarize.py reads them, each family's final mAP
@@ -110,12 +113,36 @@ def test_test_only_reproduces_the_last_evaluation(protocol, mode):
     np.testing.assert_array_equal(got, want)
 
 
+# the `python` stand-in: its arguments, one line a call, appended to
+# $CALLS; a training stage's checkpoint_0 ... checkpoint_{epochs - 1}
+# made under its --output-dir
+_FAKE_PYTHON = """#!/bin/sh
+printf "%s\\n" "$*" >> "$CALLS"
+out= epochs= test_only=
+while [ $# -gt 0 ]; do
+    case $1 in
+    --output-dir) out=$2 ;;
+    --epochs) epochs=$2 ;;
+    --test-only) test_only=1 ;;
+    esac
+    shift
+done
+if [ -n "$out" ] && [ -n "$epochs" ] && [ -z "$test_only" ]; then
+    e=0
+    while [ $e -lt $epochs ]; do
+        mkdir -p "$out/checkpoint_$e"
+        : > "$out/checkpoint_$e.meta.json"
+        e=$((e + 1))
+    done
+fi
+"""
+
+
 def _fake_bin(folder):
-    """`python` and `nvidia-smi` stand-ins: python appends its arguments,
-    one line a call, to $CALLS."""
+    """`python` and `nvidia-smi` stand-ins (see _FAKE_PYTHON)."""
     os.makedirs(folder)
     with open(os.path.join(folder, "python"), "w") as f:
-        f.write('#!/bin/sh\nprintf "%s\\n" "$*" >> "$CALLS"\n')
+        f.write(_FAKE_PYTHON)
     with open(os.path.join(folder, "nvidia-smi"), "w") as f:
         f.write('#!/bin/sh\necho "stand-in, 0 W"\n')
     for name in ("python", "nvidia-smi"):
@@ -158,7 +185,20 @@ _RECIPES = {
     "pelee304": (
         dict(batch_size=32, lr=0.02, lr_steps=[10, 14], score_thresh=0.01),
         (10, 16), ["reference"]),
+    "ssd_lite_mobilenet_v2": (
+        dict(batch_size=32, lr=0.02, lr_steps=[10, 14], score_thresh=0.01),
+        (10, 16), ["reference"]),
+    "ssd300_vgg16": (
+        dict(batch_size=32, lr=0.001, lr_steps=[22, 26], score_thresh=None),
+        (16, 28), ["reference", "fused"]),
+    "ssd512_vgg16": (
+        dict(batch_size=16, lr=0.001, lr_steps=[18, 22], score_thresh=0.01),
+        (14, 24), ["reference"]),
 }
+# run.sh's name of each family, in its default order
+_FAMILY_NAMES = {"ssdlite320_mobilenet_v3_large": "ssdlite",
+                 "pelee304": "pelee", "ssd_lite_mobilenet_v2": "sslv2",
+                 "ssd300_vgg16": "vgg300", "ssd512_vgg16": "vgg512"}
 _SHARED = dict(dataset="coco", data_path=".data/shapes", num_classes=91,
                warmup_iters=500, num_workers=2, print_freq=10, bf16=True,
                seed=0, device="cuda", momentum=0.9, weight_decay=1e-4)
@@ -166,16 +206,18 @@ _SHARED = dict(dataset="coco", data_path=".data/shapes", num_classes=91,
 
 def test_run_sh_runs_every_stage_in_order(run_sh_calls):
     models = [a.model for a in run_sh_calls["train"]]
-    assert models == ["ssdlite320_mobilenet_v3_large"] * 4 + ["pelee304"] * 3
+    stages = {m: 2 + len(_RECIPES[m][2]) for m in _FAMILY_NAMES}
+    assert models == [m for m, n in stages.items() for _ in range(n)]
     lines = run_sh_calls["stdout"].splitlines()
     assert lines[-1] == "ALL DONE"
     assert [line.split(" rc=")[0] for line in lines[:-1]] == [
-        "ssdlite stage1", "ssdlite stage2", "ssdlite testonly",
-        "ssdlite testonly_fused", "pelee stage1", "pelee stage2",
-        "pelee testonly"]
+        f"{_FAMILY_NAMES[m]} {s}" for m in _FAMILY_NAMES
+        for s in ("stage1", "stage2", "testonly", "testonly_fused")[
+            :stages[m]]]
     logs = run_sh_calls["work"] / "docs" / "trainrun_torch_r1"
-    assert (logs / "ssdlite_stages.log").read_text().count(" rc=0 ") == 4
-    assert (logs / "pelee_stages.log").read_text().count(" rc=0 ") == 3
+    for model, name in _FAMILY_NAMES.items():
+        assert (logs / f"{name}_stages.log").read_text().count(
+            " rc=0 ") == stages[model]
 
 
 @pytest.mark.parametrize("model", sorted(_RECIPES))
@@ -204,6 +246,22 @@ def test_run_sh_resumes_the_last_checkpoint(run_sh_calls, model):
         assert t.resume == f"{out}/checkpoint_{resumed.epochs - 1}"
 
 
+@pytest.mark.parametrize("model", sorted(_RECIPES))
+def test_run_sh_leaves_only_the_last_checkpoint(run_sh_calls, model):
+    fresh, resumed, *_ = [a for a in run_sh_calls["train"]
+                          if a.model == model]
+    out = run_sh_calls["work"] / fresh.output_dir
+    assert sorted(p.name for p in out.iterdir()) == [
+        f"checkpoint_{resumed.epochs - 1}",
+        f"checkpoint_{resumed.epochs - 1}.meta.json"]
+
+
+def test_run_sh_appends_one_card_line_a_call(run_sh_calls):
+    card = run_sh_calls["work"] / "docs" / "trainrun_torch_r1" / "card.log"
+    assert card.read_text().splitlines() == [
+        " ".join(_FAMILY_NAMES.values()) + ": stand-in, 0 W"]
+
+
 def test_committed_logs_pass_the_gates(capsys):
     path = os.path.join(_REPO, "docs", "trainrun_torch_r1", "summarize.py")
     spec = importlib.util.spec_from_file_location("trainrun_summary", path)
@@ -211,11 +269,13 @@ def test_committed_logs_pass_the_gates(capsys):
     spec.loader.exec_module(summary)
     assert summary.main([]) == 0
     result = json.loads(capsys.readouterr().out)
-    assert sorted(k for k in result if k != "card") == ["pelee", "ssdlite"]
-    for name in ("ssdlite", "pelee"):
+    assert sorted(k for k in result if k != "card") == sorted(
+        _FAMILY_NAMES.values())
+    for name in _FAMILY_NAMES.values():
         fam = result[name]
         assert all(fam["gates"].values()), (name, fam["gates"])
         jax_map = fam["jax_reference"]["test_only"][0]
         assert fam["final"]["map"] >= jax_map - 0.05, name
-    assert result["ssdlite"]["test_only"]["testonly_fused"][
-        "equals_stage2_last"]
+    for name in ("ssdlite", "vgg300"):
+        assert result[name]["test_only"]["testonly_fused"][
+            "equals_stage2_last"]
