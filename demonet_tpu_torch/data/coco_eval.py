@@ -359,23 +359,23 @@ class CocoEvaluator:
             # distributed sharding
             self.detections.setdefault(img_id, det)
 
-    def synchronize_between_processes(self) -> None:
-        """Merge the processes' detection sets (reference coco_eval.py:
-        52-55, misc.py:75-115, but a fixed-layout array merge, no pickle):
-        every process gets the union, the first occurrence of an image id
-        in rank order kept."""
+    def synchronize_between_processes(self, group=None) -> None:
+        """Merge the detection sets of the processes of `group` (None: all
+        of them; reference coco_eval.py:52-55, misc.py:75-115, but a
+        fixed-layout array merge, no pickle): every process gets the
+        union, the first occurrence of an image id in rank order kept."""
         from demonet_tpu_torch.parallel.dist import (
             all_gather_arrays,
             process_count,
         )
 
-        if process_count() == 1:
+        if process_count(group) == 1:
             return
         payload = _pack_detections(self.detections)
-        sizes = all_gather_arrays(np.asarray(np.int64(len(payload))))
+        sizes = all_gather_arrays(np.asarray(np.int64(len(payload))), group)
         buf = np.zeros(int(sizes.max()), np.uint8)
         buf[:len(payload)] = payload
-        bufs = all_gather_arrays(buf)
+        bufs = all_gather_arrays(buf, group)
         merged: Dict[int, Dict] = {}
         for size, b in zip(sizes, bufs):
             # first wins across ranks, as the reference's de-dup order

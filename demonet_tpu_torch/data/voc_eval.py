@@ -139,12 +139,12 @@ class VocEvaluator:
                 "labels": np.asarray(r["labels"], np.int64).reshape(-1),
             }
 
-    def synchronize_between_processes(self) -> None:
-        """Merge the processes' detections as the JAX package does: each
-        process's dict pickled, the bytes all-gathered, and the dicts
-        applied in rank order with `update`, so the last occurrence of an
-        image id wins. The bytes unpickled are those this program's
-        processes wrote."""
+    def synchronize_between_processes(self, group=None) -> None:
+        """Merge the detections of the processes of `group` (None: all of
+        them) as the JAX package does: each process's dict pickled, the
+        bytes all-gathered, and the dicts applied in rank order with
+        `update`, so the last occurrence of an image id wins. The bytes
+        unpickled are those this program's processes wrote."""
         import pickle
 
         from demonet_tpu_torch.parallel.dist import (
@@ -152,13 +152,13 @@ class VocEvaluator:
             process_count,
         )
 
-        if process_count() == 1:
+        if process_count(group) == 1:
             return
         payload = np.frombuffer(pickle.dumps(self._dets), np.uint8)
-        sizes = all_gather_arrays(np.asarray(np.int64(len(payload))))
+        sizes = all_gather_arrays(np.asarray(np.int64(len(payload))), group)
         buf = np.zeros(int(sizes.max()), np.uint8)
         buf[:len(payload)] = payload
-        bufs = all_gather_arrays(buf)
+        bufs = all_gather_arrays(buf, group)
         merged: Dict[int, Dict] = {}
         for size, b in zip(sizes, bufs):
             merged.update(pickle.loads(b[:int(size)].tobytes()))

@@ -120,12 +120,14 @@ def evaluate(
     the last batch) are dropped.
 
     With a mesh (`parallel.DataMesh`) each rank evaluates its own rows
-    (its loader shards by process) into its own evaluator; then the
-    meters and the evaluators' detections are merged across the ranks
-    (`synchronize_between_processes`), so every rank summarizes the
-    whole set."""
+    (its loader shards by the mesh's data index) into its own evaluator;
+    then the meters and the evaluators' detections are merged across the
+    ranks of the mesh's data group (`synchronize_between_processes(
+    group)`), so every rank summarizes the whole set, and the model
+    replicas of a 2-D mesh each as a 1-D mesh would."""
+    group = None
     if mesh is not None:
-        check_mesh(mesh)
+        group = check_mesh(mesh).group
     if isinstance(model, TrainState):
         model = model.model
     device = next(model.parameters()).device
@@ -150,9 +152,9 @@ def evaluate(
         evaluator_time = time.time() - t0
         logger.update(model_time=model_time, evaluator_time=evaluator_time)
 
-    logger.synchronize_between_processes()
+    logger.synchronize_between_processes(group)
     print("Averaged stats:", logger)
-    evaluator.synchronize_between_processes()
+    evaluator.synchronize_between_processes(group)
     evaluator.accumulate()
     evaluator.summarize()
     return evaluator

@@ -20,8 +20,13 @@ classifier builder the module itself, each in eval mode on `device`
 Each builder takes the JAX builders' `dtype`, the compute dtype
 (`torch.float32` by default, or `torch.bfloat16`): the parameters and BN
 statistics stay float32 and the convs and linears compute in it
-(`layers.set_compute_dtype`). `lane_pack` and `stem_s2d` are TPU
-layouts, not ported.
+(`layers.set_compute_dtype`). The JAX builders' layout keywords run
+the same math in another layout, with the same state_dict and, from the
+same seed, the same weights: `lane_pack` (the flagship's early trunk
+blocks, `lane_pack_max_lanes` wide; VGG's block 1) and `stem_s2d` (the
+stem conv on the space-to-depth layout; the flagship and
+ssd_lite_mobilenet_v2). A builder without the keyword raises TypeError,
+as the JAX package's do.
 """
 
 from __future__ import annotations
@@ -184,14 +189,21 @@ def ssdlite320_mobilenet_v3_large(
     device: Device = None,
     seed: int = 0,
     dtype: torch.dtype = torch.float32,
+    lane_pack: bool = False,
+    lane_pack_max_lanes: int = 128,
+    stem_s2d: bool = False,
     **config_overrides: Any,
 ) -> Detector:
-    """SSDLite320 + MobileNetV3-Large, the flagship model."""
+    """SSDLite320 + MobileNetV3-Large, the flagship model. `lane_pack`
+    runs the early trunk blocks in the lane-packed layout; `stem_s2d`
+    the stem conv on the space-to-depth layout."""
     device = resolve_device(device)
     aspect_ratios = [[2, 3]] * 6
     num_anchors = anchor_lib.num_anchors_per_location(aspect_ratios)
-    extractor = SSDLiteMobileNetExtractor(bn_momentum=_SSDLITE_BN_MOMENTUM,
-                                          reduced_tail=reduced_tail)
+    extractor = SSDLiteMobileNetExtractor(
+        bn_momentum=_SSDLITE_BN_MOMENTUM, reduced_tail=reduced_tail,
+        lane_pack=lane_pack, lane_pack_max_lanes=lane_pack_max_lanes,
+        stem_s2d=stem_s2d)
     head = SSDLiteHead(extractor.out_channels, num_anchors, num_classes,
                        bn_momentum=_SSDLITE_BN_MOMENTUM)
     config = _config(size, num_classes, dict(
@@ -207,7 +219,7 @@ def ssdlite320_mobilenet_v3_large(
 
 def _ssd_vgg16(num_classes: int, size: Tuple[int, int], highres: bool,
                device: Device, seed: int, dtype: torch.dtype,
-               config_overrides) -> Detector:
+               lane_pack: bool, config_overrides) -> Detector:
     device = resolve_device(device)
     if highres:    # SSD512, the SSD paper's 7 maps
         aspect_ratios = [[2], [2, 3], [2, 3], [2, 3], [2, 3], [2], [2]]
@@ -218,7 +230,7 @@ def _ssd_vgg16(num_classes: int, size: Tuple[int, int], highres: bool,
         scales = [0.07, 0.15, 0.33, 0.51, 0.69, 0.87, 1.05]
         steps = [8, 16, 32, 64, 100, 300]
     num_anchors = anchor_lib.num_anchors_per_location(aspect_ratios)
-    extractor = VGG16SSDExtractor(highres=highres)
+    extractor = VGG16SSDExtractor(highres=highres, lane_pack=lane_pack)
     head = SSDHead(extractor.out_channels, num_anchors, num_classes)
     # caffe-style normalisation: mean in [0, 1] units, std 1/255
     config = _config(size, num_classes, dict(
@@ -231,20 +243,21 @@ def _ssd_vgg16(num_classes: int, size: Tuple[int, int], highres: bool,
 
 
 def ssd300_vgg16(num_classes: int = 91, device: Device = None, seed: int = 0,
-                 dtype: torch.dtype = torch.float32,
+                 dtype: torch.dtype = torch.float32, lane_pack: bool = False,
                  **config_overrides: Any) -> Detector:
-    """The classic SSD300 on VGG16 (300x300, 8,732 anchors)."""
+    """The classic SSD300 on VGG16 (300x300, 8,732 anchors). `lane_pack`
+    runs block 1 in the lane-packed layout."""
     return _ssd_vgg16(num_classes, (300, 300), False, device, seed, dtype,
-                      config_overrides)
+                      lane_pack, config_overrides)
 
 
 def ssd512_vgg16(num_classes: int = 91, device: Device = None, seed: int = 0,
-                 dtype: torch.dtype = torch.float32,
+                 dtype: torch.dtype = torch.float32, lane_pack: bool = False,
                  **config_overrides: Any) -> Detector:
     """SSD512 on VGG16 through the highres extras (512x512, 24,732
-    anchors)."""
+    anchors). `lane_pack` as ssd300_vgg16's."""
     return _ssd_vgg16(num_classes, (512, 512), True, device, seed, dtype,
-                      config_overrides)
+                      lane_pack, config_overrides)
 
 
 def ssd_lite_mobilenet_v2(
@@ -254,15 +267,17 @@ def ssd_lite_mobilenet_v2(
     device: Device = None,
     seed: int = 0,
     dtype: torch.dtype = torch.float32,
+    stem_s2d: bool = False,
     **config_overrides: Any,
 ) -> Detector:
     """The legacy SSDLite + MobileNetV2 VOC model: 6 x [2, 3] ratios,
     scales 0.2-0.95; the head's BN eps 1e-5 and a plain 1x1 conv on the
-    last level."""
+    last level. `stem_s2d` computes the stem conv on the space-to-depth
+    layout."""
     device = resolve_device(device)
     aspect_ratios = [[2, 3]] * 6
     num_anchors = anchor_lib.num_anchors_per_location(aspect_ratios)
-    extractor = MobileNetV2ExtraBlocks()
+    extractor = MobileNetV2ExtraBlocks(stem_s2d=stem_s2d)
     head = SSDLiteHead(extractor.out_channels, num_anchors, num_classes,
                        bn_momentum=0.1, bn_eps=1e-5, last_plain=True)
     config = _config(size, num_classes, dict(

@@ -46,13 +46,18 @@ class SSDLiteMobileNetExtractor(nn.Module):
     min_depth and small-trunk options have no builder that sets them.
     Every BN has eps 1e-3 and torch momentum 0.03, SSDLite's detection BN
     (the JAX package's decay 0.97, demonet_tpu/models/features.py:73).
+    `lane_pack`, `lane_pack_max_lanes` and `stem_s2d` go to the trunk.
     """
 
-    def __init__(self, bn_momentum: float = 0.03, reduced_tail: bool = True):
+    def __init__(self, bn_momentum: float = 0.03, reduced_tail: bool = True,
+                 lane_pack: bool = False, lane_pack_max_lanes: int = 128,
+                 stem_s2d: bool = False):
         super().__init__()
         rows, _ = mobilenet_v3_conf("mobilenet_v3_large",
                                     reduced_tail=reduced_tail)
-        self.trunk = MobileNetV3Features(rows, bn_momentum=bn_momentum)
+        self.trunk = MobileNetV3Features(
+            rows, bn_momentum=bn_momentum, lane_pack=lane_pack,
+            lane_pack_max_lanes=lane_pack_max_lanes, stem_s2d=stem_s2d)
         depths = [512, 256, 256, 128]
         self.out_channels = [rows[self.trunk.c4_block_index].expanded_channels,
                              6 * rows[-1].out_channels, *depths]
@@ -92,14 +97,16 @@ class _ExtraInvertedResidual(nn.Module):
 
 class MobileNetV2ExtraBlocks(nn.Module):
     """MobileNetV2 + extra blocks: 6 maps, at 320x320 96x20^2 (block 13),
-    1280x10^2 (the last conv), 512x5^2, 256x3^2, 256x2^2, 64x1^2 (NCHW)."""
+    1280x10^2 (the last conv), 512x5^2, 256x3^2, 256x2^2, 64x1^2 (NCHW).
+    `stem_s2d` goes to the trunk."""
 
     hidden_dims = (512, 256, 256, 64)
     expand_ratios = (0.2, 0.25, 0.5, 0.25)
 
-    def __init__(self, width_mult: float = 1.0):
+    def __init__(self, width_mult: float = 1.0, stem_s2d: bool = False):
         super().__init__()
-        self.trunk = MobileNetV2Features(width_mult=width_mult)
+        self.trunk = MobileNetV2Features(width_mult=width_mult,
+                                         stem_s2d=stem_s2d)
         self.out_channels = [make_divisible(96 * width_mult, 8),
                              self.trunk.last_channel, *self.hidden_dims]
         self.extras = nn.ModuleList(

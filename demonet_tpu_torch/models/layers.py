@@ -27,6 +27,13 @@ sets the dtype of every Conv2d and Linear under a module; float32, the
 default, casts nothing, so a module computes in its parameters' dtype
 (float64 after `.double()`). No autocast: its per-op lists differ from
 the JAX model's choices and between the CPU and CUDA.
+
+The JAX package's layouts of the same math (`ops/lane_pack.py`):
+`S2DConv2d` (the stem conv on the space-to-depth layout, `ConvBNAct`'s
+`s2d`), `PackedConv2d`, `PackedBatchNorm` and `PackedConvBNAct` (the
+lane-packed layout, `InvertedResidualV3`'s `lane_pack_in` and
+`lane_pack_run`). Each holds the parameters and buffers of the module it
+stands for, under the same names and shapes.
 """
 
 from __future__ import annotations
@@ -38,6 +45,14 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from demonet_tpu_torch.ops.lane_pack import (
+    conv_1x1_packed,
+    conv_dense_packed,
+    conv_dw_packed,
+    conv_s2d_stem,
+    packed_batch_stats,
+    repack,
+)
 from demonet_tpu_torch.parallel.dist import all_reduce_sum
 
 Act = Optional[Callable[[torch.Tensor], torch.Tensor]]
@@ -85,6 +100,46 @@ class Conv2d(nn.Conv2d):
         if self.bias is None:
             return y
         return y + self.bias.to(self.dtype)[:, None, None]
+
+    def operands(self, x: torch.Tensor):
+        """(x, weight) cast to `dtype` (float32 casts nothing)."""
+        if self.dtype == torch.float32:
+            return x, self.weight
+        return x.to(self.dtype), self.weight.to(self.dtype)
+
+
+class S2DConv2d(Conv2d):
+    """A 3x3 stride-2 padding-1 conv without bias computed on the
+    space-to-depth layout (`ops.lane_pack.conv_s2d_stem`): the same
+    weight (O, C, 3, 3) as the Conv2d it stands for, rearranged at each
+    call, so the state_dict and the gradient are the plain conv's."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return conv_s2d_stem(*self.operands(x))
+
+
+class PackedConv2d(Conv2d):
+    """A conv computed in the lane-packed layout at pack `pack`
+    (`ops/lane_pack.py`), holding the weight (and bias) of the Conv2d it
+    stands for, with its shape and name: a 1x1 conv, a 3x3 depthwise
+    conv, or a dense 3x3 conv with same padding, at stride 1 or 2. Takes
+    and gives packed maps; the bias is tiled over the packs."""
+
+    def __init__(self, *args, pack: int, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.pack = pack
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x, w = self.operands(x)
+        if w.shape[2:] == (1, 1):
+            y = conv_1x1_packed(x, w, self.pack)
+        elif self.groups == self.in_channels > 1:
+            y = conv_dw_packed(x, w, self.pack, self.stride[0])
+        else:
+            y = conv_dense_packed(x, w, self.pack, self.stride[0])
+        if self.bias is None:
+            return y
+        return y + self.bias.to(y.dtype).repeat(self.pack)[:, None, None]
 
 
 class Linear(nn.Linear):
@@ -203,13 +258,7 @@ class BatchNorm(nn.BatchNorm2d):
             moments = stats[:2 * c] / stats[2 * c]
             mean = moments[:c]
             var = (moments[c:] - mean * mean).clamp(min=0.0)
-            if not _HOLD_STATS[0]:
-                decay = 1.0 - self.momentum
-                with torch.no_grad():
-                    self.running_mean.copy_(decay * self.running_mean
-                                            + (1.0 - decay) * mean)
-                    self.running_var.copy_(decay * self.running_var
-                                           + (1.0 - decay) * var)
+            self._track(mean, var)
         else:
             mean, var = self.running_mean, self.running_var
         mul = torch.rsqrt(var + self.eps) * self.weight
@@ -217,24 +266,95 @@ class BatchNorm(nn.BatchNorm2d):
              + self.bias[:, None, None])
         return y.to(x.dtype)
 
+    def _track(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        """running = decay * running + (1 - decay) * batch, in the JAX
+        package's order, unless inside `hold_running_stats()`."""
+        if _HOLD_STATS[0]:
+            return
+        decay = 1.0 - self.momentum
+        with torch.no_grad():
+            self.running_mean.copy_(decay * self.running_mean
+                                    + (1.0 - decay) * mean)
+            self.running_var.copy_(decay * self.running_var
+                                   + (1.0 - decay) * var)
+
+
+class PackedBatchNorm(BatchNorm):
+    """BatchNorm of a lane-packed map (B, pack*C, H, Wp) with the
+    variables of the unpacked BatchNorm(C) (the JAX package's
+    _PackedBatchNorm): statistics per true channel in float32 (whatever
+    x's dtype, float64 too, as there), var = E[x^2] - E[x]^2 unclamped,
+    through `ops.lane_pack.packed_batch_stats` (over the group of
+    `global_batch_stats`, where one is set); the normalisation folded
+    into x * tile(mul) + tile(add) in x's dtype (bfloat16 under
+    bfloat16); the running statistics moved as BatchNorm's (`_track`)."""
+
+    def __init__(self, num_features: int, pack: int, eps: float = 1e-3,
+                 momentum: float = 0.01):
+        super().__init__(num_features, eps=eps, momentum=momentum)
+        self.pack = pack
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            mean, var = packed_batch_stats(x.float(), self.pack,
+                                           self.num_features, _STATS_GROUP[0])
+            self._track(mean, var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = self.weight * torch.rsqrt(var + self.eps)
+        add = self.bias - mean * mul
+        return (x * mul.repeat(self.pack).to(x.dtype)[:, None, None]
+                + add.repeat(self.pack).to(x.dtype)[:, None, None])
+
 
 class ConvBNAct(nn.Module):
     """Conv2d (no bias) + BatchNorm + activation.
 
     ``act`` None means linear. ``groups`` equal to the channel count gives
-    a depthwise conv.
+    a depthwise conv. ``s2d`` computes a 3x3 stride-2 conv on the
+    space-to-depth layout (`S2DConv2d`: the same math and weight).
     """
 
     def __init__(self, in_channels: int, features: int, kernel_size: int = 3,
                  stride: int = 1, groups: int = 1, dilation: int = 1,
                  act: Act = relu6, bn_eps: float = 1e-3,
-                 bn_momentum: float = 0.01):
+                 bn_momentum: float = 0.01, s2d: bool = False):
         super().__init__()
-        self.conv = Conv2d(
+        if s2d and (kernel_size, stride, groups, dilation) != (3, 2, 1, 1):
+            raise ValueError("s2d is a 3x3 stride-2 conv's layout")
+        self.conv = (S2DConv2d if s2d else Conv2d)(
             in_channels, features, kernel_size, stride=stride,
             padding=_torch_padding(kernel_size, dilation), dilation=dilation,
             groups=groups, bias=False)
         self.bn = BatchNorm(features, eps=bn_eps, momentum=bn_momentum)
+        self.act = act
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.bn(self.conv(x))
+        return x if self.act is None else self.act(x)
+
+
+class PackedConvBNAct(nn.Module):
+    """ConvBNAct computed in the lane-packed layout at pack `pack` (the
+    JAX package's PackedConvBNAct): a 1x1 conv, or a 3x3 depthwise conv
+    at `stride`, then PackedBatchNorm and the activation, on packed maps.
+    Its state_dict keys and shapes are ConvBNAct's."""
+
+    def __init__(self, in_channels: int, features: int, kernel_size: int = 1,
+                 stride: int = 1, depthwise: bool = False, act: Act = None,
+                 bn_eps: float = 1e-3, bn_momentum: float = 0.01,
+                 pack: int = 1):
+        super().__init__()
+        if depthwise != (kernel_size == 3) or (
+                depthwise and features != in_channels):
+            raise ValueError("a packed ConvBNAct is a 1x1 conv or a 3x3 "
+                             "depthwise conv")
+        self.conv = PackedConv2d(
+            in_channels, features, kernel_size, stride=stride,
+            padding=_torch_padding(kernel_size),
+            groups=in_channels if depthwise else 1, bias=False, pack=pack)
+        self.bn = PackedBatchNorm(features, pack, eps=bn_eps,
+                                  momentum=bn_momentum)
         self.act = act
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -266,11 +386,29 @@ class InvertedResidualV3(nn.Module):
     def __init__(self, in_channels: int, expanded_channels: int,
                  out_channels: int, kernel_size: int, stride: int,
                  dilation: int = 1, use_se: bool = False,
-                 use_hs: bool = False, bn_momentum: float = 0.01):
+                 use_hs: bool = False, bn_momentum: float = 0.01,
+                 lane_pack_in: int = 1, lane_pack_run: int = 1):
         super().__init__()
         act = hard_swish if use_hs else torch.relu
         bn = dict(bn_momentum=bn_momentum)
         self.use_res_connect = stride == 1 and in_channels == out_channels
+        self.in_channels = in_channels
+        self.lane_pack_in, self.lane_pack_run = lane_pack_in, lane_pack_run
+        if lane_pack_in > 1 or lane_pack_run > 1:
+            if kernel_size != 3 or use_se or dilation != 1:
+                raise ValueError("lane packing: 3x3 blocks with no SE and "
+                                 "no dilation only")
+            packed = dict(bn, pack=lane_pack_run)
+            self.expand_conv = (PackedConvBNAct(
+                in_channels, expanded_channels, 1, act=act, **packed)
+                if expanded_channels != in_channels else None)
+            self.depthwise = PackedConvBNAct(
+                expanded_channels, expanded_channels, 3, stride=stride,
+                depthwise=True, act=act, **packed)
+            self.se = None
+            self.project = PackedConvBNAct(expanded_channels, out_channels,
+                                           1, **packed)
+            return
         if expanded_channels != in_channels:
             self.expand_conv = ConvBNAct(in_channels, expanded_channels, 1,
                                          act=act, **bn)
@@ -288,6 +426,8 @@ class InvertedResidualV3(nn.Module):
 
     def expand(self, x: torch.Tensor) -> torch.Tensor:
         """The expand 1x1 only: the SSDLite C4 tap point."""
+        if self.lane_pack_run > 1:
+            raise ValueError("the C4 tap block is never lane-packed")
         return x if self.expand_conv is None else self.expand_conv(x)
 
     def remainder(self, x: torch.Tensor) -> torch.Tensor:
@@ -298,7 +438,13 @@ class InvertedResidualV3(nn.Module):
         return self.project(y)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = self.remainder(self.expand(x))
+        if self.lane_pack_in > 1 or self.lane_pack_run > 1:
+            x = repack(x, self.lane_pack_in, self.lane_pack_run,
+                       self.in_channels)
+            y = x if self.expand_conv is None else self.expand_conv(x)
+            y = self.remainder(y)
+        else:
+            y = self.remainder(self.expand(x))
         return x + y if self.use_res_connect else y
 
 

@@ -6,8 +6,8 @@ indices of the torch `features` Sequential (0 = stem conv, 1..17 =
 inverted residuals, 18 = the final 1x1 conv to 1280), which the legacy
 SSDLite extractor taps at 13 and 18; and the `mobilenet_v2` classifier.
 Every BN has eps 1e-5 and torch momentum 0.1 (the JAX package's decay
-0.9). The JAX package's `stem_s2d` is a TPU layout of the stem conv and
-is not ported.
+0.9). `stem_s2d` computes the stem conv on the space-to-depth layout
+(layers.S2DConv2d): the same math with the same state_dict.
 """
 
 from __future__ import annotations
@@ -44,13 +44,15 @@ class MobileNetV2Features(nn.Module):
     or the final output alone when taps is None."""
 
     def __init__(self, width_mult: float = 1.0, round_nearest: int = 8,
-                 bn_eps: float = 1e-5, bn_momentum: float = 0.1):
+                 bn_eps: float = 1e-5, bn_momentum: float = 0.1,
+                 stem_s2d: bool = False):
         super().__init__()
         bn = dict(bn_eps=bn_eps, bn_momentum=bn_momentum)
         ch = make_divisible(32 * width_mult, round_nearest)
         self.last_channel = make_divisible(1280 * max(1.0, width_mult),
                                            round_nearest)
-        self.stem = ConvBNAct(3, ch, 3, stride=2, act=relu6, **bn)
+        self.stem = ConvBNAct(3, ch, 3, stride=2, act=relu6, s2d=stem_s2d,
+                              **bn)
         blocks = []
         for t, c, n, s in _V2_SETTING:
             out_ch = make_divisible(c * width_mult, round_nearest)

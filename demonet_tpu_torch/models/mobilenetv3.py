@@ -1,7 +1,8 @@
 """MobileNetV3 large/small (counterpart of demonet_tpu/models/mobilenetv3.py).
 
 The block tables, `MobileNetV3Features` with the C4 split that SSDLite
-taps, and the `MobileNetV3` classifier (mean pool, `pre_classifier`,
+taps (and the JAX package's lane-packed prefix and space-to-depth stem),
+and the `MobileNetV3` classifier (mean pool, `pre_classifier`,
 hard-swish, dropout, `classifier`; BN eps 1e-3, torch momentum 0.01).
 """
 
@@ -21,6 +22,7 @@ from demonet_tpu_torch.models.layers import (
     hard_swish,
     make_divisible,
 )
+from demonet_tpu_torch.ops.lane_pack import unpack
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,6 +97,26 @@ def mobilenet_v3_conf(
     return rows, last_channel
 
 
+def pack_plan(configs: Sequence[BlockConfig], lane_pack: bool = True,
+              max_lanes: int = 128) -> List[int]:
+    """The pack factor each block runs at (1: unpacked). Only a PREFIX of
+    eligible blocks (3x3, no SE, no dilation) packs, each at the largest
+    of 8, 4, 2 that keeps its input and expanded channels times the pack
+    within `max_lanes`; the first block that cannot pack ends it."""
+    plan = []
+    ended = not lane_pack
+    for cfg in configs:
+        p_run = 1
+        if not ended and cfg.kernel == 3 and not cfg.use_se \
+                and cfg.dilation == 1:
+            p_run = next((p for p in (8, 4, 2)
+                          if p * cfg.expanded_channels <= max_lanes
+                          and p * cfg.in_channels <= max_lanes), 1)
+        ended = ended or p_run == 1
+        plan.append(p_run)
+    return plan
+
+
 class MobileNetV3Features(nn.Module):
     """Trunk: stem conv + inverted residuals + final 6x 1x1 conv (NCHW).
 
@@ -102,20 +124,32 @@ class MobileNetV3Features(nn.Module):
     1x1 of the last strided block. Otherwise returns [final]. BN momentum
     0.01 by default, as in the JAX package's trunk (decay 0.99); SSDLite
     passes 0.03.
+
+    ``lane_pack`` runs the prefix of blocks that `pack_plan` packs in the
+    lane-packed layout (ops/lane_pack.py), each entered at the pack of the
+    block before it and unpacked where the prefix ends; ``stem_s2d``
+    computes the stem conv on the space-to-depth layout. Both are the same
+    math with the same state_dict, as in the JAX package.
     """
 
     def __init__(self, configs: Sequence[BlockConfig],
-                 bn_momentum: float = 0.01):
+                 bn_momentum: float = 0.01, lane_pack: bool = False,
+                 lane_pack_max_lanes: int = 128, stem_s2d: bool = False):
         super().__init__()
         self.configs = tuple(configs)
         self.stem = ConvBNAct(3, self.configs[0].in_channels, 3, stride=2,
-                              act=hard_swish, bn_momentum=bn_momentum)
+                              act=hard_swish, bn_momentum=bn_momentum,
+                              s2d=stem_s2d)
+        self.plan = pack_plan(self.configs, lane_pack, lane_pack_max_lanes)
+        plan = self.plan
         self.blocks = nn.ModuleList(
             InvertedResidualV3(
                 cfg.in_channels, cfg.expanded_channels, cfg.out_channels,
                 cfg.kernel, cfg.stride, cfg.dilation, cfg.use_se, cfg.use_hs,
-                bn_momentum=bn_momentum)
-            for cfg in self.configs)
+                bn_momentum=bn_momentum,
+                lane_pack_in=plan[i - 1] if i and plan[i] > 1 else 1,
+                lane_pack_run=plan[i])
+            for i, cfg in enumerate(self.configs))
         last = self.configs[-1].out_channels
         self.last_conv = ConvBNAct(last, 6 * last, 1, act=hard_swish,
                                    bn_momentum=bn_momentum)
@@ -130,13 +164,18 @@ class MobileNetV3Features(nn.Module):
         out = []
         x = self.stem(x)
         c4 = self.c4_block_index if c4_split else -1
+        plan = self.plan
         for i, block in enumerate(self.blocks):
+            if i and plan[i - 1] > 1 and plan[i] == 1:
+                # the packed prefix ended: back to the pixel layout
+                x = unpack(x, plan[i - 1], self.configs[i].in_channels)
             if i == c4:
                 x = block.expand(x)
                 out.append(x)
                 x = block.remainder(x)
             else:
                 x = block(x)
+        x = unpack(x, plan[-1], self.configs[-1].out_channels)
         out.append(self.last_conv(x))
         return out
 

@@ -9,8 +9,11 @@ demonet_tpu/models/vgg.py).
 
 The module names are the JAX package's (`conv1_1` ... `fc7`,
 `scale_weight`), so `utils/weights.load_jax_variables` fills them by rule.
-The JAX package's `lane_pack` layout of block 1 is a TPU layout of the
-same math and is not ported.
+`lane_pack` runs block 1 (64 channels at full resolution) in the
+lane-packed layout at p = 2 (ops/lane_pack.py): conv1_1 and conv1_2 as
+`layers.PackedConv2d` with the same weights and names, then
+`packed_pool_2x2`, which lands unpacked at (B, 64, H/2, W/2); the same
+math, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -21,7 +24,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from demonet_tpu_torch.models.layers import Conv2d
+from demonet_tpu_torch.models.layers import Conv2d, PackedConv2d
+from demonet_tpu_torch.ops.lane_pack import pack, packed_pool_2x2
 
 
 def max_pool_torch(x: torch.Tensor, k: int, s: int, padding: int = 0,
@@ -66,13 +70,16 @@ class VGG16SSDExtractor(nn.Module):
     (SSD512, `highres`) maps: conv4_3 rescaled, fc7, conv8_2, conv9_2,
     conv10_2, conv11_2[, conv12_2], NCHW. No BN anywhere."""
 
-    def __init__(self, highres: bool = False):
+    def __init__(self, highres: bool = False, lane_pack: bool = False):
         super().__init__()
         self.highres = highres
+        self.lane_pack = lane_pack
         ch = 3
         for blk, n, out in _TRUNK:
             for i in range(1, n + 1):
-                self.add_module(f"conv{blk}_{i}", _conv(ch, out))
+                conv = (PackedConv2d(ch, out, 3, padding=1, pack=2)
+                        if lane_pack and blk == 1 else _conv(ch, out))
+                self.add_module(f"conv{blk}_{i}", conv)
                 ch = out
         self.scale_weight = nn.Parameter(torch.full((512,), 20.0))
         self.fc6 = _conv(512, 1024, padding=6, dilation=6)
@@ -88,7 +95,10 @@ class VGG16SSDExtractor(nn.Module):
         return x
 
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
-        x = max_pool_torch(self._stage(x, 1, 2), 2, 2)
+        if self.lane_pack:
+            x = packed_pool_2x2(self._stage(pack(x, 2), 1, 2), 64)
+        else:
+            x = max_pool_torch(self._stage(x, 1, 2), 2, 2)
         x = max_pool_torch(self._stage(x, 2, 2), 2, 2)
         x = max_pool_torch(self._stage(x, 3, 3), 2, 2, ceil_mode=True)
         x = self._stage(x, 4, 3)

@@ -11,7 +11,8 @@ package's do without `jax.distributed`:
     variables (torchrun's RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR,
     MASTER_PORT), and does nothing when there are neither;
   * `sync_devices` is a barrier; `all_gather_arrays` gathers a numpy
-    array from every process, byte for byte, whatever its dtype;
+    array from every process of a group (all by default), byte for
+    byte, whatever its dtype;
   * `all_reduce_sum` is a SUM all-reduce that autograd differentiates:
     its backward is the SUM all-reduce of the gradient, so that each
     rank's backward of its share of a global loss gives its share of the
@@ -94,8 +95,9 @@ def process_index() -> int:
     return dist.get_rank() if _initialized() else 0
 
 
-def process_count() -> int:
-    return dist.get_world_size() if _initialized() else 1
+def process_count(group=None) -> int:
+    """The number of processes in `group` (None: all of them)."""
+    return dist.get_world_size(group) if _initialized() else 1
 
 
 def is_main_process() -> bool:
@@ -122,18 +124,20 @@ def sync_devices(name: str = "barrier") -> None:
             dist.barrier()
 
 
-def all_gather_arrays(x: np.ndarray) -> np.ndarray:
-    """Gather a same-shape host array from every process; returns
-    (num_processes, *shape). The bytes travel as uint8, so every dtype
-    comes back bit for bit."""
+def all_gather_arrays(x: np.ndarray, group=None) -> np.ndarray:
+    """Gather a same-shape host array from every process of `group`
+    (None: all of them); returns (num_processes, *shape), in the group's
+    rank order. The bytes travel as uint8, so every dtype comes back bit
+    for bit."""
     x = np.asarray(x)
-    if process_count() == 1:
+    n = process_count(group)
+    if n == 1:
         return x[None]
     raw = torch.from_numpy(
         np.ascontiguousarray(x).reshape(-1).view(np.uint8).copy()).to(
         _comm_device())
-    parts = [torch.empty_like(raw) for _ in range(process_count())]
-    dist.all_gather(parts, raw)
+    parts = [torch.empty_like(raw) for _ in range(n)]
+    dist.all_gather(parts, raw, group=group)
     out = torch.stack(parts).cpu().numpy()
     return out.view(x.dtype).reshape((len(parts),) + x.shape)
 

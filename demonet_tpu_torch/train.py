@@ -36,8 +36,11 @@ the `tensorboard` package imports. `--bf16` builds the model with
 bfloat16 compute (parameters, BN statistics and checkpoints stay
 float32, so a run resumes across the flag either way); `--remat`
 recomputes the activations in the backward pass of both train steps.
-`--lane-pack` and `--stem-s2d` are TPU layout knobs, not ported on
-purpose: they raise NotImplementedError.
+`--lane-pack` and `--stem-s2d` build the model in the lane-packed or
+space-to-depth layout (`get_model(..., lane_pack=True)`,
+`stem_s2d=True`): the same math with the same state_dict, so a run
+resumes across either flag; a model whose builder lacks the keyword
+raises TypeError.
 """
 
 from __future__ import annotations
@@ -88,11 +91,15 @@ def get_args_parser(add_help: bool = True) -> argparse.ArgumentParser:
                         help="stages to train from the top (0..6); None = all"
                              " (reference train.py flag semantics)")
     parser.add_argument("--lane-pack", dest="lane_pack", action="store_true",
-                        help="the JAX package's lane-packed trunk layout; "
-                             "not ported (raises)")
+                        help="run the early trunk in the lane-packed layout "
+                             "(ops/lane_pack.py): same math and state_dict "
+                             "(ssdlite320_mobilenet_v3_large, ssd300_vgg16, "
+                             "ssd512_vgg16)")
     parser.add_argument("--stem-s2d", dest="stem_s2d", action="store_true",
-                        help="the JAX package's space-to-depth stem; not "
-                             "ported (raises)")
+                        help="compute the stem conv on the space-to-depth "
+                             "layout: same math and state_dict "
+                             "(ssdlite320_mobilenet_v3_large, "
+                             "ssd_lite_mobilenet_v2)")
     parser.add_argument("--postprocess", default="reference",
                         choices=["reference", "fused"],
                         help="eval postprocess: 'fused' = trained-model fast "
@@ -134,19 +141,6 @@ def get_args_parser(add_help: bool = True) -> argparse.ArgumentParser:
                         help="the device to train and evaluate on: 'cuda' "
                              "(the default) or 'cpu'")
     return parser
-
-
-_UNPORTED_FLAGS = (
-    ("lane_pack", "--lane-pack", "a TPU layout knob, not ported on purpose"),
-    ("stem_s2d", "--stem-s2d", "a TPU layout knob, not ported on purpose"),
-)
-
-
-def check_ported(args) -> None:
-    """Raise NotImplementedError for a flag whose feature is not ported."""
-    for attr, flag, where in _UNPORTED_FLAGS:
-        if getattr(args, attr, False):
-            raise NotImplementedError(f"{flag} is not ported ({where})")
 
 
 def build_datasets(args):
@@ -196,8 +190,6 @@ def main(args):
     """Train (or, with --test-only, evaluate) as the flags say. Returns
     the evaluator of the last evaluation (its `stats` hold the summary),
     or None when no epoch ran."""
-    check_ported(args)
-
     import torch
 
     from demonet_tpu_torch.data.loader import DetectionLoader
@@ -220,8 +212,6 @@ def main(args):
         data_mesh,
         initialize,
         is_main_process,
-        process_count,
-        process_index,
         replicate,
     )
     from demonet_tpu_torch.utils.checkpoints import (
@@ -244,6 +234,10 @@ def main(args):
 
     model_kw = dict(num_classes=num_classes, device=device, seed=args.seed,
                     dtype=torch.bfloat16 if args.bf16 else torch.float32)
+    if getattr(args, "lane_pack", False):
+        model_kw["lane_pack"] = True  # builders without the knob raise
+    if getattr(args, "stem_s2d", False):
+        model_kw["stem_s2d"] = True
     if getattr(args, "score_thresh", None) is not None:
         model_kw["score_thresh"] = args.score_thresh
     detector = get_model(args.model, **model_kw)
@@ -252,7 +246,7 @@ def main(args):
     loader_kw = dict(
         image_size=size, max_gt=args.max_gt, seed=args.seed,
         num_workers=args.num_workers,
-        num_shards=process_count(), shard_index=process_index(),
+        num_shards=mesh.data_size, shard_index=mesh.data_index,
         image_dtype="uint8" if getattr(args, "u8_transfer", False)
         else "float32")
     batch_sampler = None

@@ -39,13 +39,14 @@ class SmoothedValue:
         self.count += n
         self.total += value * n
 
-    def synchronize_between_processes(self):
-        """Sum count and total across processes, in float64 (the window
-        stays this process's own)."""
-        if process_count() == 1:
+    def synchronize_between_processes(self, group=None):
+        """Sum count and total across the processes of `group` (None: all
+        of them), in float64 (the window stays this process's own)."""
+        if process_count(group) == 1:
             return
         agg = all_gather_arrays(
-            np.asarray([self.count, self.total], np.float64)).sum(axis=0)
+            np.asarray([self.count, self.total], np.float64),
+            group).sum(axis=0)
         self.count = int(agg[0])
         self.total = float(agg[1])
 
@@ -104,11 +105,12 @@ class MetricLogger:
         return self.delimiter.join(
             f"{name}: {meter}" for name, meter in self.meters.items())
 
-    def synchronize_between_processes(self):
-        """Every meter's count and total summed across processes (every
-        process must hold the same meters, in the same order)."""
+    def synchronize_between_processes(self, group=None):
+        """Every meter's count and total summed across the processes of
+        `group` (None: all of them; every process must hold the same
+        meters, in the same order)."""
         for meter in self.meters.values():
-            meter.synchronize_between_processes()
+            meter.synchronize_between_processes(group)
 
     def add_meter(self, name: str, meter: SmoothedValue):
         self.meters[name] = meter

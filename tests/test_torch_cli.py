@@ -47,14 +47,26 @@ def test_parser_keeps_every_jax_flag_and_default():
     assert args.device == "cuda"
 
 
-@pytest.mark.parametrize("flag,where", [
-    (["--lane-pack"], "on purpose"), (["--stem-s2d"], "on purpose"),
-])
-def test_unported_flags_raise(flag, where):
-    args = port_train.get_args_parser().parse_args(
-        ["--dataset", "synthetic", "--device", "cpu", *flag])
-    with pytest.raises(NotImplementedError, match=where):
-        port_train.main(args)
+@pytest.mark.parametrize("flag", ["--lane-pack", "--stem-s2d"])
+def test_layout_flags_reach_get_model(flag, tmp_path, monkeypatch):
+    """The twin of tests/test_cli.py's lane-pack wiring test: the flag
+    reaches get_model, and a --test-only run with --postprocess fused
+    evaluates the layout's model (at 64x64) end to end."""
+    seen, get = [], builders.get_model
+
+    def small(name, **kw):
+        seen.append(kw)
+        return get(name, **dict(kw, size=(64, 64)))
+
+    monkeypatch.setattr(builders, "get_model", small)
+    args = port_train.get_args_parser().parse_args([
+        "--dataset", "synthetic", "--synthetic-size", "8", "--num-classes",
+        "5", "--batch-size", "8", "--test-only", flag, "--postprocess",
+        "fused", "--output-dir", str(tmp_path), "--device", "cpu"])
+    ev = port_train.main(args)
+    key = flag[2:].replace("-", "_")
+    assert [kw.get(key) for kw in seen] == [True]
+    assert np.isfinite(ev.stats).all()
 
 
 def test_cuda_default_raises_without_a_gpu(monkeypatch):

@@ -197,9 +197,11 @@ def test_evaluators_raise_across_processes(monkeypatch):
     mine, other = dets[:6], dets[6:] + [dict(dets[3], image_id=0)]
     gathers = []
 
-    def two_ranks(x):
+    def two_ranks(x, group=None):
         """Rank 0 is this process; rank 1 gives the same call's array
-        made by a twin evaluator that holds `other`."""
+        made by a twin evaluator that holds `other`. With no group asked
+        for, the merge is over every process."""
+        assert group is None
         gathers.append(x)
         theirs = twin_calls[len(gathers) - 1]
         width = max(np.asarray(x).size, np.asarray(theirs).size)
@@ -214,9 +216,10 @@ def test_evaluators_raise_across_processes(monkeypatch):
         calls = []
         ev.update(results)
         with monkeypatch.context() as m:
-            m.setattr(dist, "process_count", lambda: 2)
+            m.setattr(dist, "process_count", lambda group=None: 2)
             m.setattr(dist, "all_gather_arrays",
-                      lambda x: calls.append(x) or np.stack([x, x]))
+                      lambda x, group=None: calls.append(x)
+                      or np.stack([x, x]))
             ev.synchronize_between_processes()
         return calls
 
@@ -228,7 +231,7 @@ def test_evaluators_raise_across_processes(monkeypatch):
         gathers.clear()
         ev = make()
         ev.update(mine)
-        monkeypatch.setattr(dist, "process_count", lambda: 2)
+        monkeypatch.setattr(dist, "process_count", lambda group=None: 2)
         monkeypatch.setattr(dist, "all_gather_arrays", two_ranks)
         ev.synchronize_between_processes()
         monkeypatch.undo()

@@ -43,7 +43,7 @@ def test_import_pulls_in_no_jax():
     modules = ", ".join("demonet_tpu_torch." + m for m in (
         "models.builders", "models.losses", "models.matcher",
         "engine.evaluate", "engine.state", "engine.train",
-        "ops.fused_block", "parallel.dist", "parallel.mesh",
+        "ops.fused_block", "ops.lane_pack", "parallel.dist", "parallel.mesh",
         "utils.checkpoints",
         "utils.freeze", "utils.logging", "utils.metrics_writer",
         "utils.weights", "data", "data.coco", "data.coco_eval",

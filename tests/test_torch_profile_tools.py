@@ -3,9 +3,11 @@ tools/trace_op_stats_torch.py and tools/roofline_report_torch.py.
 
 The profile tool traces the flagship's predict and train steps at b2 with
 `--device cpu` (the trace holds the step's convolutions and their flop
-counts), raises with no GPU unless asked for the CPU, and refuses
-`--lane-pack`. The stats tool reads a small trace written here in the
-format torch.profiler writes on the card (host ops with flops, runtime
+counts), raises with no GPU unless asked for the CPU, builds the
+lane-packed flagship under `--lane-pack`, and refuses `--frames` of
+another size than the model's before any step runs. The stats tool
+reads a small trace written here in the format torch.profiler writes on
+the card (host ops with flops, runtime
 launches, kernels and a copy linked by `correlation`, an idle gap), and
 its rollup, TFLOP/s, launches and top list are stated below; it refuses a
 trace with no device events. The roofline tool's flops over the
@@ -75,10 +77,37 @@ def test_profile_tool_raises_without_a_gpu(tmp_path, monkeypatch):
     assert not os.listdir(tmp_path)
 
 
-def test_profile_tool_refuses_lane_pack(tmp_path):
-    with pytest.raises(NotImplementedError, match="--lane-pack"):
-        profile_model_torch.main(
-            _profile_args(tmp_path, "--lane-pack", "--device", "cpu"))
+def test_profile_tool_lane_pack_traces_the_packed_model(tmp_path,
+                                                        monkeypatch):
+    from demonet_tpu_torch.models import builders
+
+    built, get = [], builders.get_model
+
+    def spy(name, **kw):
+        built.append(get(name, **kw))
+        return built[-1]
+
+    monkeypatch.setattr(builders, "get_model", spy)
+    out = profile_model_torch.main(
+        _profile_args(tmp_path, "--lane-pack", "--device", "cpu"))
+    trunk = built[0].model.extractor.trunk
+    assert trunk.plan[:3] == [8, 2, 1]
+    assert type(trunk.blocks[0].depthwise.conv).__name__ == "PackedConv2d"
+    with gzip.open(out["trace"], "rt") as f:
+        names = [e["name"] for e in json.load(f)["traceEvents"]
+                 if e.get("cat") == "cpu_op"]
+    assert names.count("aten::convolution") == 98
+
+
+def test_profile_tool_refuses_frames_of_another_size(tmp_path):
+    """The 320x320 frames for ssd300_vgg16 (300x300): refused, naming both
+    sizes, before weights, frames or a step are read or run."""
+    frames = os.path.join(_REPO, "bench_assets", "val_images_320.npz")
+    with pytest.raises(ValueError, match="320x320 frames .* 300x300"):
+        profile_model_torch.main(_profile_args(
+            tmp_path, "--model", "ssd300_vgg16", "--frames", frames,
+            "--device", "cpu"))
+    assert not os.listdir(tmp_path)
 
 
 def _op(name, ts, dur, flops=None):

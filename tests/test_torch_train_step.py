@@ -373,16 +373,19 @@ def test_train_one_epoch_stops_on_non_finite_loss(ref, capsys):
     assert "Loss is nan, stopping training" in capsys.readouterr().out
 
 
-def test_unported_options_raise(ref):
-    """The mesh is ported (tests/test_torch_dist_train.py); its 2-D
-    (data, model) form is not (item 10b), and a mesh that is not a
-    DataMesh is refused."""
+def test_mesh_options_taken_and_refused(ref):
+    """The mesh (tests/test_torch_dist_train.py) and its 2-D (data,
+    model) form (tests/test_torch_mesh2d.py) are ported: in one process,
+    a 2-D mesh has no world to split and raises the JAX package's
+    ValueError; a mesh that is not a DataMesh is refused."""
     from demonet_tpu_torch.parallel import data_mesh
 
     pd = _port(ref["variables"])
     make_train_step(pd, remat=True)         # ported: tests/test_torch_remat.py
-    with pytest.raises(NotImplementedError, match="10b"):
+    with pytest.raises(ValueError,
+                       match="1 devices not divisible by model_axis=2"):
         data_mesh([torch.device("cpu")], model_axis=2)
+    assert data_mesh([torch.device("cpu")], model_axis=1).data_size == 1
     with pytest.raises(TypeError, match="DataMesh"):
         make_train_step(pd, mesh=object())
     state = create_train_state(pd, _sgd())

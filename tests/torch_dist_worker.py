@@ -47,6 +47,12 @@ def _child(target, rank, world, store, out_dir, args):
 def spawn(target, world, tmp_path, *args):
     """Run target(rank, world, *args) on `world` gloo ranks; their
     results, in rank order. Fails if a rank fails or outlives 180 s."""
+    return join(start(target, world, tmp_path, *args))
+
+
+def start(target, world, tmp_path, *args):
+    """Start the ranks of `spawn` and return at once; `join` waits for
+    them and gives their results (within 180 s of this call)."""
     out_dir = str(tmp_path)
     store = os.path.join(out_dir, "store")
     ctx = multiprocessing.get_context("spawn")
@@ -55,7 +61,14 @@ def spawn(target, world, tmp_path, *args):
              for r in range(world)]
     for p in procs:
         p.start()
-    deadline = time.monotonic() + _JOIN_S
+    return procs, out_dir, time.monotonic() + _JOIN_S
+
+
+def join(started):
+    """The results of the ranks `start` started, in rank order. Fails if
+    a rank failed or is still running at its deadline (it is killed)."""
+    procs, out_dir, deadline = started
+    world = len(procs)
     for p in procs:
         p.join(max(0.0, deadline - time.monotonic()))
     hung = [r for r, p in enumerate(procs) if p.is_alive()]
@@ -148,6 +161,26 @@ def mesh_train_steps(rank, world, variables, batch):
                      ("remat", {"remat": True})):
         out[name] = train_two_steps(port_detector(variables), rows, mesh, **kw)
     return out
+
+
+def mesh2d_steps_and_evaluate(rank, world, model_axis, variables, batch,
+                              npz, n_frames, eval_batch):
+    """This rank's place in the (data, model) mesh of `model_axis`
+    replicas, two mesh steps on its data shard's rows, and the sharded
+    evaluation (`sharded_evaluate`) over that mesh and over the 1-D mesh
+    of every rank."""
+    import torch.distributed as dist
+
+    from demonet_tpu_torch.parallel import data_mesh
+
+    mesh = data_mesh([torch.device("cpu")], model_axis=model_axis)
+    rows = local_rows(batch, mesh.data_index, mesh.data_size)
+    return {"place": (mesh.data_index, mesh.model_index, mesh.data_size),
+            "group": dist.get_process_group_ranks(mesh.group),
+            "steps": train_two_steps(port_detector(variables), rows, mesh),
+            "evaluate": {m: sharded_evaluate(rank, world, npz, n_frames,
+                                             eval_batch, model_axis=m)
+                         for m in (model_axis, 1)}}
 
 
 def one_rank_steps(rank, world, variables, batch):
@@ -243,10 +276,11 @@ def merges(rank, world, gts, sets, voc_set, classes, ckpt_root):
 
 # -- evaluation ---------------------------------------------------------------
 
-def sharded_evaluate(rank, world, npz, n_frames, batch):
+def sharded_evaluate(rank, world, npz, n_frames, batch, model_axis=1):
     """evaluate(mesh=...) of the trained flagship over this rank's shard
-    of the CLI's synthetic validation frames: the merged COCO summary,
-    the image ids this rank fed its evaluator, and the merged set's ids."""
+    of the CLI's synthetic validation frames (its data index's, on a mesh
+    of `model_axis` replicas): the merged COCO summary, the image ids
+    this rank fed its evaluator, and the merged set's ids."""
     from demonet_tpu_torch.data.coco_eval import CocoEvaluator
     from demonet_tpu_torch.data.loader import DetectionLoader
     from demonet_tpu_torch.data.presets import DetectionPresetEval
@@ -259,13 +293,14 @@ def sharded_evaluate(rank, world, npz, n_frames, batch):
     from demonet_tpu_torch.utils.checkpoints import load_npz_variables
     from demonet_tpu_torch.utils.weights import load_jax_variables
 
-    mesh = data_mesh([torch.device("cpu")])
+    mesh = data_mesh([torch.device("cpu")], model_axis=model_axis)
     det = ssdlite320_mobilenet_v3_large(num_classes=91, device="cpu")
     load_jax_variables(det.model, load_npz_variables(npz))
     ds = SyntheticDetection(n=n_frames, num_classes=7, seed=1,
                             transforms=DetectionPresetEval())
     loader = DetectionLoader(ds, batch, image_size=(320, 320),
-                             num_shards=world, shard_index=rank)
+                             num_shards=mesh.data_size,
+                             shard_index=mesh.data_index)
     seen = []
 
     class Recording(CocoEvaluator):

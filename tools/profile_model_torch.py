@@ -59,6 +59,16 @@ def load_bench_images(path, batch):
     return np.tile(arr, (reps, 1, 1, 1))[:batch]
 
 
+def frame_size(path):
+    """(H, W) of the first frame of a frames npz, from its JPEG header."""
+    from PIL import Image
+
+    with np.load(path, allow_pickle=False) as z:
+        blob = z[sorted(z.files)[0]]
+    w, h = Image.open(io.BytesIO(blob.tobytes())).size
+    return h, w
+
+
 def kernel_counters():
     """The hand-written kernels' wrappers, each counting its launches."""
     from demonet_tpu_torch.ops.fused_block import fused_inverted_residual
@@ -75,10 +85,6 @@ def kernel_counters():
 def build_step(args):
     """(device, run): `run()` makes one call of the step the flags ask for
     and returns what it returns."""
-    if args.lane_pack:
-        raise NotImplementedError(
-            "--lane-pack is not ported (a TPU layout knob, not ported on "
-            "purpose)")
     import torch
 
     from demonet_tpu_torch.engine.evaluate import make_predict_step
@@ -92,15 +98,22 @@ def build_step(args):
 
     device = resolve_device(None if args.device == "cuda" else args.device)
     dtype = torch.bfloat16 if args.bf16 else torch.float32
+    model_kw = {"lane_pack": True} if args.lane_pack else {}
     det = get_model(args.model, num_classes=args.num_classes, device=device,
-                    dtype=dtype)
+                    dtype=dtype, **model_kw)
+    h, w = det.config.size
+    if args.frames:
+        fh, fw = frame_size(args.frames)
+        if (fh, fw) != (h, w):
+            raise ValueError(
+                f"--frames {args.frames} holds {fh}x{fw} frames and "
+                f"{args.model} takes {h}x{w} ones; the tool resizes nothing")
     if args.npz_weights:
         from demonet_tpu_torch.utils.checkpoints import load_npz_variables
         from demonet_tpu_torch.utils.weights import load_jax_variables
 
         load_jax_variables(det.model, load_npz_variables(args.npz_weights))
     b = args.batch_size
-    h, w = det.config.size
     if args.frames:
         images = load_bench_images(args.frames, b)
     else:
@@ -217,8 +230,8 @@ def get_args_parser():
     p.add_argument("--batch-size", type=int, default=64)
     p.add_argument("--bf16", action="store_true")
     p.add_argument("--lane-pack", dest="lane_pack", action="store_true",
-                   help="the JAX package's lane-packed trunk layout; not "
-                        "ported (raises)")
+                   help="build the model in the lane-packed layout "
+                        "(get_model(..., lane_pack=True))")
     p.add_argument("--iters", type=int, default=5)
     p.add_argument("--logdir", default="runs/demonet_trace")
     p.add_argument("--impl", default="reference",
