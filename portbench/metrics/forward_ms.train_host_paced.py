@@ -1,0 +1,9 @@
+"""Device time of the train-mode forward (preprocess included) in the
+train step, mean per step: CUDA events put by the step's own `on_phase`
+hook."""
+
+from harness import readings
+
+
+def read(run):
+    return readings.phase_mean(run, "train", "forward")

@@ -1,0 +1,8 @@
+"""Training throughput: the images of every step the window ran, over the
+window, which ends when the device has finished them."""
+
+from harness import readings
+
+
+def read(run):
+    return readings.window_rate(run, "train")
