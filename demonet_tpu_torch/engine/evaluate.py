@@ -26,6 +26,7 @@ from demonet_tpu_torch.models.detection import (
 )
 from demonet_tpu_torch.parallel.mesh import check_mesh
 from demonet_tpu_torch.utils.logging import MetricLogger
+from demonet_tpu_torch.utils.spans import span
 
 
 def make_predict_step(
@@ -47,6 +48,10 @@ def make_predict_step(
     (a train step leaves it in train mode), as the JAX package's predict
     passes train=False. A bf16 model's head outputs are cast to float32
     before the postprocess, so its detections are float32 too.
+
+    Each call is a `demonet.predict` span (`utils/spans.py`) holding
+    `demonet.preprocess`, `demonet.forward` and `demonet.postprocess`;
+    the model and the postprocess open their own spans inside these.
     """
     if mesh is not None:
         check_mesh(mesh)
@@ -56,15 +61,19 @@ def make_predict_step(
     def step(model: torch.nn.Module, images: torch.Tensor,
              original_sizes: Optional[torch.Tensor] = None
              ) -> Dict[str, torch.Tensor]:
-        if model.training:
-            model.eval()
-        with torch.inference_mode():
-            x = preprocess(images, config, resize=False)
-            outputs = model(x)
-            return postprocess_detections(
-                outputs["cls_logits"], outputs["bbox_regression"], anchors,
-                config, original_sizes, nms_impl=nms_impl,
-                topk_impl=topk_impl, impl=impl)
+        with span("demonet.predict"):
+            if model.training:
+                model.eval()
+            with torch.inference_mode():
+                with span("demonet.preprocess"):
+                    x = preprocess(images, config, resize=False)
+                with span("demonet.forward"):
+                    outputs = model(x)
+                with span("demonet.postprocess"):
+                    return postprocess_detections(
+                        outputs["cls_logits"], outputs["bbox_regression"],
+                        anchors, config, original_sizes, nms_impl=nms_impl,
+                        topk_impl=topk_impl, impl=impl)
 
     return step
 

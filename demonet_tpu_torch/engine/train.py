@@ -31,6 +31,7 @@ from demonet_tpu_torch.models.layers import (
 from demonet_tpu_torch.models.losses import multibox_loss
 from demonet_tpu_torch.parallel.mesh import check_mesh, shard_batch
 from demonet_tpu_torch.utils.logging import MetricLogger, SmoothedValue
+from demonet_tpu_torch.utils.spans import span
 
 Batch = Dict[str, Any]
 Metrics = Dict[str, torch.Tensor]
@@ -68,6 +69,13 @@ def make_train_step(
     each of 'forward', 'loss', 'backward' and 'optimizer' (of the last
     sub-step); it lets a caller put CUDA events between them.
 
+    Each (sub-)step is a `demonet.train_step` span (`utils/spans.py`)
+    holding `demonet.train.upload`, `demonet.forward` (with the model's
+    spans), `demonet.loss` (with `demonet.loss.match` and
+    `demonet.loss.mine`), `demonet.train.backward`, with a mesh
+    `demonet.train.allreduce`, and `demonet.train.optimizer`; each
+    `on_phase` call follows the end of its span.
+
     `remat` recomputes the activations in the backward pass instead of
     keeping them, as the JAX package's `jax.checkpoint` over the whole
     train-mode apply: `torch.utils.checkpoint` over the whole model, its
@@ -104,41 +112,52 @@ def make_train_step(
 
     def step(state: TrainState, batch: Batch, on_phase=None
              ) -> Tuple[TrainState, Metrics]:
+        with span("demonet.train_step"):
+            return _step(state, batch, on_phase)
+
+    def _step(state: TrainState, batch: Batch, on_phase
+              ) -> Tuple[TrainState, Metrics]:
         model = state.model
         if not model.training:
             model.train()
-        b = {k: torch.as_tensor(batch[k]).to(device, non_blocking=True)
-             for k in _KEYS}
+        with span("demonet.train.upload"):
+            b = {k: torch.as_tensor(batch[k]).to(device, non_blocking=True)
+                 for k in _KEYS}
         images = b["images"]
         if normalize_in_step:
             images = (to_float(images) - mean) / std
         with global_batch_stats(group):
-            if remat:
-                outputs = checkpoint(model, images, use_reentrant=False,
-                                     context_fn=_remat_contexts)
-            else:
-                outputs = model(images)
+            with span("demonet.forward"):
+                if remat:
+                    outputs = checkpoint(model, images, use_reentrant=False,
+                                         context_fn=_remat_contexts)
+                else:
+                    outputs = model(images)
             _mark(on_phase, "forward")
-            losses = multibox_loss(
-                outputs["cls_logits"], outputs["bbox_regression"], anchors,
-                b["gt_boxes"], b["gt_labels"], b["gt_valid"],
-                iou_thresh=config.iou_thresh,
-                neg_to_pos_ratio=config.neg_to_pos_ratio,
-                box_coder_weights=config.box_coder_weights, group=group)
-            total = losses["bbox_regression"] + losses["classification"]
+            with span("demonet.loss"):
+                losses = multibox_loss(
+                    outputs["cls_logits"], outputs["bbox_regression"],
+                    anchors, b["gt_boxes"], b["gt_labels"], b["gt_valid"],
+                    iou_thresh=config.iou_thresh,
+                    neg_to_pos_ratio=config.neg_to_pos_ratio,
+                    box_coder_weights=config.box_coder_weights, group=group)
+                total = losses["bbox_regression"] + losses["classification"]
             _mark(on_phase, "loss")
-            model.zero_grad(set_to_none=True)
-            total.backward()
+            with span("demonet.train.backward"):
+                model.zero_grad(set_to_none=True)
+                total.backward()
         _mark(on_phase, "backward")
         metrics = {k: v.detach() for k, v in losses.items()}
         if group is not None:
-            metrics = _all_reduce_grads(model, metrics, group)
+            with span("demonet.train.allreduce"):
+                metrics = _all_reduce_grads(model, metrics, group)
             metrics["loss"] = (metrics["bbox_regression"]
                                + metrics["classification"])
         else:
             metrics["loss"] = total.detach()
-        state.optimizer.step_at(state.step)
-        state.step += 1
+        with span("demonet.train.optimizer"):
+            state.optimizer.step_at(state.step)
+            state.step += 1
         _mark(on_phase, "optimizer")
         return state, metrics
 

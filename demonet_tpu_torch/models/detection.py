@@ -49,6 +49,7 @@ from demonet_tpu_torch.ops.gather import (
 )
 from demonet_tpu_torch.ops.nms import nms_keep_batch, nms_keep_batch_plain
 from demonet_tpu_torch.ops.topk import topk_sparse
+from demonet_tpu_torch.utils.spans import span
 
 _NEG_INF = -1e30
 
@@ -79,7 +80,10 @@ class SSD(nn.Module):
 
     Takes NHWC images (B, H, W, 3) and runs the convs NCHW. Output:
     {'cls_logits': (B, A, C), 'bbox_regression': (B, A, 4)}, A the total
-    anchor count. The anchors themselves live in the `Detector`.
+    anchor count. The anchors themselves live in the `Detector`. The
+    extractor and the head are the spans `demonet.model.extractor` and
+    `demonet.model.head` (`utils/spans.py`; no-ops unless a profiler
+    records, and under every tracer).
     """
 
     def __init__(self, extractor: nn.Module, head: nn.Module):
@@ -88,7 +92,10 @@ class SSD(nn.Module):
         self.head = head
 
     def forward(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
-        return self.head(self.extractor(images.permute(0, 3, 1, 2)))
+        with span("demonet.model.extractor"):
+            features = self.extractor(images.permute(0, 3, 1, 2))
+        with span("demonet.model.head"):
+            return self.head(features)
 
 
 def to_float(images: torch.Tensor) -> torch.Tensor:
@@ -187,15 +194,22 @@ def postprocess_detections(
     impl="fused" routes through the trained-model fast path
     (`_postprocess_fused`) with an exact fallback to the reference
     pipeline; topk_impl applies to the reference pipeline only.
+
+    Spans (`utils/spans.py`): `demonet.postprocess.decode`, then on the
+    reference pipeline `.topk`, `.gather`, `.nms` and `.select`, and on
+    the fused path `.fused` with its guards' host read `.fused_guard`
+    inside it.
     """
     if impl not in ("reference", "fused"):
         raise ValueError(
             f"impl must be 'reference' or 'fused', got {impl!r}")
-    scores, boxes = _scores_and_boxes(cls_logits, bbox_regression, anchors,
-                                      config)
+    with span("demonet.postprocess.decode"):
+        scores, boxes = _scores_and_boxes(cls_logits, bbox_regression,
+                                          anchors, config)
     if impl == "fused":
-        return _postprocess_fused(scores, boxes, config, original_sizes,
-                                  nms_impl, gather_impl)
+        with span("demonet.postprocess.fused"):
+            return _postprocess_fused(scores, boxes, config, original_sizes,
+                                      nms_impl, gather_impl)
     return _postprocess_reference_core(
         scores, boxes, config, original_sizes, nms_impl, topk_impl,
         gather_impl)
@@ -235,17 +249,19 @@ def _select_candidates(scores: torch.Tensor, boxes: torch.Tensor,
     b, a, c = scores.shape
     k = min(config.topk_candidates, a)
     fg_scores = scores[..., 1:].transpose(1, 2)  # (B, C-1, A)
-    if topk_impl in ("exact", "approx"):
-        top_sc, top_idx = _sorted_topk(fg_scores, k)
-    elif topk_impl in ("sparse", "sparse_pallas"):
-        slots = max(8, -(-k // 128))
-        top_sc, top_idx = topk_sparse(fg_scores.contiguous(), k,
-                                      config.score_thresh, slots)
-    else:
-        raise ValueError("topk_impl must be 'exact', 'approx', 'sparse' or "
-                         f"'sparse_pallas', got {topk_impl!r}")
-    cand_boxes = _gather_rows(
-        boxes, top_idx.reshape(b, -1), gather_impl).reshape(b, c - 1, k, 4)
+    with span("demonet.postprocess.topk"):
+        if topk_impl in ("exact", "approx"):
+            top_sc, top_idx = _sorted_topk(fg_scores, k)
+        elif topk_impl in ("sparse", "sparse_pallas"):
+            slots = max(8, -(-k // 128))
+            top_sc, top_idx = topk_sparse(fg_scores.contiguous(), k,
+                                          config.score_thresh, slots)
+        else:
+            raise ValueError("topk_impl must be 'exact', 'approx', 'sparse' "
+                             f"or 'sparse_pallas', got {topk_impl!r}")
+    with span("demonet.postprocess.gather"):
+        cand_boxes = _gather_rows(boxes, top_idx.reshape(b, -1),
+                                  gather_impl).reshape(b, c - 1, k, 4)
     # score-threshold filter, strict >
     cand_sc = torch.where(top_sc > config.score_thresh, top_sc,
                           torch.full((), _NEG_INF, dtype=top_sc.dtype,
@@ -268,29 +284,31 @@ def _postprocess_reference_core(
     cand_boxes, cand_sc = _select_candidates(scores, boxes, config, topk_impl,
                                              gather_impl)
     k = cand_sc.shape[-1]
-    neg = torch.full((), _NEG_INF, dtype=cand_sc.dtype, device=cand_sc.device)
+    with span("demonet.postprocess.nms"):
+        keep = _nms_keep(
+            cand_boxes.reshape(b * (c - 1), k, 4),
+            cand_sc.reshape(b * (c - 1), k),
+            config, nms_impl).reshape(b, c - 1, k)
 
-    keep = _nms_keep(
-        cand_boxes.reshape(b * (c - 1), k, 4),
-        cand_sc.reshape(b * (c - 1), k),
-        config, nms_impl).reshape(b, c - 1, k)
+    with span("demonet.postprocess.select"):
+        neg = torch.full((), _NEG_INF, dtype=cand_sc.dtype,
+                         device=cand_sc.device)
+        flat_sc = torch.where(keep, cand_sc, neg).reshape(b, -1)
 
-    flat_sc = torch.where(keep, cand_sc, neg).reshape(b, -1)
-
-    d = config.detections_per_img
-    d2 = min(d, (c - 1) * k)  # pad below if fewer candidate slots than D
-    out_scores, out_idx = _sorted_topk(flat_sc, d2)  # (B, D)
-    valid = out_scores > _NEG_INF / 2
-    # labels need no gather: the flat index encodes (class, candidate)
-    out_boxes = _gather_rows(
-        cand_boxes.reshape(b, (c - 1) * k, 4), out_idx, gather_impl)
-    zero = torch.zeros((), dtype=out_boxes.dtype, device=out_boxes.device)
-    out_boxes = torch.where(valid[..., None], out_boxes, zero)
-    out_labels = torch.where(valid, (out_idx // k).to(torch.int32) + 1,
-                             torch.zeros_like(out_idx, dtype=torch.int32))
-    out_scores = torch.where(valid, out_scores, zero)
-    return _pad_and_rescale(out_boxes, out_scores, out_labels, valid, config,
-                            original_sizes)
+        d = config.detections_per_img
+        d2 = min(d, (c - 1) * k)  # pad below if fewer candidate slots than D
+        out_scores, out_idx = _sorted_topk(flat_sc, d2)  # (B, D)
+        valid = out_scores > _NEG_INF / 2
+        # labels need no gather: the flat index encodes (class, candidate)
+        out_boxes = _gather_rows(
+            cand_boxes.reshape(b, (c - 1) * k, 4), out_idx, gather_impl)
+        zero = torch.zeros((), dtype=out_boxes.dtype, device=out_boxes.device)
+        out_boxes = torch.where(valid[..., None], out_boxes, zero)
+        out_labels = torch.where(valid, (out_idx // k).to(torch.int32) + 1,
+                                 torch.zeros_like(out_idx, dtype=torch.int32))
+        out_scores = torch.where(valid, out_scores, zero)
+        return _pad_and_rescale(out_boxes, out_scores, out_labels, valid,
+                                config, original_sizes)
 
 
 def _pad_and_rescale(out_boxes: torch.Tensor, out_scores: torch.Tensor,
@@ -489,7 +507,8 @@ def _postprocess_fused(
         out = _fused_switch(scores, all_boxes, config, sz, nms_impl,
                             gather_impl)
         return _pad_and_rescale(*out, config, original_sizes)
-    r = _fused_capacity(scores, config)
+    with span("demonet.postprocess.fused_guard"):
+        r = _fused_capacity(scores, config)
     counts = _postprocess_fused.branches
     if r is None:
         counts["fallback"] += 1

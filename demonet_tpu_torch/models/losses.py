@@ -36,6 +36,7 @@ import torch
 from demonet_tpu_torch.models.matcher import ssd_match
 from demonet_tpu_torch.ops.boxes import box_iou, encode_boxes
 from demonet_tpu_torch.parallel.dist import all_reduce_sum
+from demonet_tpu_torch.utils.spans import span
 
 
 def smooth_l1(x: torch.Tensor, beta: float = 1.0) -> torch.Tensor:
@@ -85,7 +86,8 @@ def classification_terms(
     CE is logsumexp minus the target's logit (the target is the matched
     gt's label on foreground anchors, 0 elsewhere). The negatives are the
     top neg_to_pos_ratio * positives of each image by CE, positives
-    excluded: rank by a stable argsort of -CE, inverted by a scatter.
+    excluded: rank by a stable argsort of -CE, inverted by a scatter
+    (the span `demonet.loss.mine`).
     """
     b, a, _ = cls_logits.shape
     fg = matched_idxs >= 0
@@ -96,12 +98,13 @@ def classification_terms(
     label_logit = torch.gather(cls_logits, 2, targets[..., None])[..., 0]
     ce = logz - label_logit
 
-    num_neg = neg_to_pos_ratio * fg.sum(dim=1)              # (B,) float
-    neg_loss = torch.where(fg, float("-inf"), ce.detach())
-    order = torch.argsort(-neg_loss, dim=1, stable=True)
-    place = torch.arange(a, device=cls_logits.device).expand(b, a)
-    rank = torch.empty_like(order).scatter_(1, order, place)
-    bg = rank < num_neg[:, None]
+    with span("demonet.loss.mine"):
+        num_neg = neg_to_pos_ratio * fg.sum(dim=1)          # (B,) float
+        neg_loss = torch.where(fg, float("-inf"), ce.detach())
+        order = torch.argsort(-neg_loss, dim=1, stable=True)
+        place = torch.arange(a, device=cls_logits.device).expand(b, a)
+        rank = torch.empty_like(order).scatter_(1, order, place)
+        bg = rank < num_neg[:, None]
     return ce, fg, bg
 
 
@@ -138,7 +141,9 @@ def multibox_loss(
     logits' device.
     """
     if matched_idxs is None:
-        matched_idxs = match_batch(anchors, gt_boxes, gt_valid, iou_thresh)
+        with span("demonet.loss.match"):
+            matched_idxs = match_batch(anchors, gt_boxes, gt_valid,
+                                       iou_thresh)
     b, a, _ = cls_logits.shape
     ce, fg, bg = classification_terms(cls_logits, matched_idxs, gt_labels,
                                       neg_to_pos_ratio)

@@ -13,6 +13,11 @@ once, and waits for them.
 Flags: `-fmad=false` keeps nvcc from contracting a*b+c into an FMA, which
 would round differently from the plain PyTorch version and can flip an
 NMS decision that sits right at the IoU threshold. No fast-math flag.
+
+`seconds` counts, for this process, what each library cost:
+{name: {'build_s': nvcc's wall time (0.0 where the library was already
+built), 'load_s': the `ctypes` load}}; a library built again shows
+there with its nvcc time.
 """
 
 from __future__ import annotations
@@ -33,6 +38,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+seconds: Dict[str, Dict[str, float]] = {}
+
+
+def _count(name: str, key: str, secs: float) -> None:
+    seconds.setdefault(name, {"build_s": 0.0, "load_s": 0.0})[key] += secs
 
 
 def _nvcc() -> str:
@@ -96,6 +106,7 @@ def build_all() -> Dict[str, float]:
         if s is not None:
             _finish(name, s)
         secs[name] = time.perf_counter() - t0 if s is not None else 0.0
+        _count(name, "build_s", secs[name])
     return secs
 
 
@@ -109,16 +120,22 @@ def build(name: str) -> str:
     """The path of the library of `csrc/<name>.cu`, built first if needed.
     A program linked against it finds it through the rpath `BUILD_DIR`
     (the C++ runner's ops library, `export/aoti.py`)."""
+    t0 = time.perf_counter()
     started = _start(name)
     if started is not None:
         _finish(name, started)
+    _count(name, "build_s",
+           time.perf_counter() - t0 if started is not None else 0.0)
     return library_path(name)
 
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of `csrc/<name>.cu`, built first if needed."""
     if name not in _loaded:
-        _loaded[name] = ctypes.CDLL(build(name))
+        path = build(name)
+        t0 = time.perf_counter()
+        _loaded[name] = ctypes.CDLL(path)
+        _count(name, "load_s", time.perf_counter() - t0)
     return _loaded[name]
 
 

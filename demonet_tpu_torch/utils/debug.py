@@ -11,7 +11,6 @@ gradients in the autograd graph).
     raises in the backward op that made a NaN and names its forward;
   * `tree_finite_report`: leaves with NaN/Inf and the largest |x| of
     nested dicts and lists or a state_dict;
-  * `annotate`: a named span in `torch.profiler` traces;
   * `graph_to_dot`: a module's or function's `torch.fx` graph as graphviz
     dot text (the JAX package's jaxpr_to_dot);
   * `dump_hlo`: the compiler's IR of a module or function at a chosen
@@ -21,7 +20,6 @@ gradients in the autograd graph).
 
 from __future__ import annotations
 
-import contextlib
 import os
 from typing import (Any, Callable, Dict, Iterator, List, Mapping, Optional,
                     Tuple)
@@ -112,13 +110,6 @@ def tree_finite_report(tree: Any) -> Dict[str, Any]:
         max_abs = max(max_abs, float(np.max(np.abs(arr))))
     return {"num_leaves": len(leaves), "non_finite_paths": bad,
             "max_abs": max_abs}
-
-
-@contextlib.contextmanager
-def annotate(name: str):
-    """A named span in torch.profiler traces."""
-    with torch.profiler.record_function(name):
-        yield
 
 
 def graph_to_dot(fn: Any, *example_args: Any, max_nodes: int = 400) -> str:

@@ -18,7 +18,7 @@ import torch
 
 from demonet_tpu.utils import debug as jax_debug
 from demonet_tpu.utils.metrics_writer import MetricsWriter as JaxWriter
-from demonet_tpu_torch.utils import debug
+from demonet_tpu_torch.utils import debug, spans
 from demonet_tpu_torch.utils.metrics_writer import MetricsWriter
 
 
@@ -119,10 +119,16 @@ def test_nan_checks_and_annotate():
     finally:
         debug.enable_nan_checks(False)
     assert not torch.is_anomaly_enabled()
+    # the named trace span (the JAX package's `annotate`): the program's
+    # span recorder, a CPU range on the profiler's timeline
+    spans.reset()
     with torch.profiler.profile() as prof:
-        with debug.annotate("port_span"):
+        with spans.span("demonet.port_span"):
             torch.ones(4).sum()
-    assert any(e.name == "port_span" for e in prof.events())
+    got = [e for e in prof.events() if e.name == "demonet.port_span"]
+    assert len(got) == 1 and not got[0].is_user_annotation
+    assert spans.summary()["demonet.port_span"]["calls"] == 1
+    spans.reset()
 
 
 def test_metrics_writer_jsonl_flush_and_tensorboard(tmp_path):

@@ -3,7 +3,7 @@ tools/trace_op_stats_torch.py and tools/roofline_report_torch.py.
 
 The profile tool traces the flagship's predict and train steps at b2 with
 `--device cpu` (the trace holds the step's convolutions and their flop
-counts), raises with no GPU unless asked for the CPU, builds the
+counts, and its last line the program's spans over the traced call), raises with no GPU unless asked for the CPU, builds the
 lane-packed flagship under `--lane-pack`, and refuses `--frames` of
 another size than the model's before any step runs. The stats tool
 reads a small trace written here in the format torch.profiler writes on
@@ -66,6 +66,11 @@ def test_profile_tool_traces_the_step_on_the_cpu(tmp_path, mode):
     assert out["events_with_flops"] >= 98
     # no card, so no kernel launched
     assert not any(out["launches"].values())
+    # the program's spans over the one traced call, in the trace too
+    root = {"predict": "demonet.predict", "train": "demonet.train_step"}[mode]
+    assert out["spans"][root]["calls"] == 1
+    assert out["spans"]["demonet.model.head"]["device_ms"] > 0
+    assert set(out["spans"]) <= set(names)
     with pytest.raises(SystemExit, match="no device events"):
         trace_op_stats_torch.summarize(want, iters=1)
 

@@ -22,9 +22,11 @@ The trained serving configuration (trained weights, real val frames):
         --bf16 --logdir runs/train --device cpu   # on the CPU
 
 On the GPU by default; without one and without `--device cpu` it raises.
-The last line printed is one JSON object: the trace's path, the step, and
-the launches of each hand-written kernel over the traced calls (the
-wrappers' own counts).
+The last line printed is one JSON object: the trace's path, the step, the
+launches of each hand-written kernel over the traced calls (the
+wrappers' own counts), and under `spans` the program's own spans over
+those calls (`demonet_tpu_torch/utils/spans.py`'s `summary()`: each
+span's calls and its host, device and self device ms a call).
 """
 
 from __future__ import annotations
@@ -178,9 +180,12 @@ def write_trace(prof, path):
 
 def trace_step(run, device, args):
     """Call `run` once, trace `args.iters` calls and write the trace; returns
-    {'trace', 'model', 'mode', ..., 'events_with_flops', 'launches'}."""
+    {'trace', 'model', 'mode', ..., 'events_with_flops', 'launches',
+    'spans'}."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    from demonet_tpu_torch.utils import spans
 
     cuda = device.type == "cuda"
 
@@ -192,6 +197,7 @@ def trace_step(run, device, args):
     sync()
     counters = kernel_counters()
     before = {k: fn.launches for k, fn in counters.items()}
+    spans.reset()
     activities = [ProfilerActivity.CPU] + (
         [ProfilerActivity.CUDA] if cuda else [])
     with profile(activities=activities, record_shapes=True,
@@ -200,6 +206,7 @@ def trace_step(run, device, args):
             run()
         sync()
     launches = {k: fn.launches - before[k] for k, fn in counters.items()}
+    span_ms = spans.summary()
 
     os.makedirs(args.logdir, exist_ok=True)
     path = os.path.join(args.logdir,
@@ -209,7 +216,8 @@ def trace_step(run, device, args):
             "batch_size": args.batch_size, "bf16": args.bf16,
             "impl": args.impl, "host_batch": args.host_batch,
             "device": str(device), "iters": args.iters,
-            "events_with_flops": n_flops, "launches": launches}
+            "events_with_flops": n_flops, "launches": launches,
+            "spans": span_ms}
 
 
 def main(args):
