@@ -45,6 +45,13 @@ package. The script prints one JSON line per phase:
                at the k-th value, k - 1 / k / k + 1 live, one exponent
                bin, live scores in the 28-score tail), its launches
                counted and the plain version never run on a CUDA tensor;
+               `kernel_topk_class_tile`: the top-k's class-tile launch on
+               the b128 (B, A, C) softmax output of the serve cells'
+               shapes (the trained flagship, A = 3,234, k = 300; seeded
+               ssd300_vgg16, A = 8,732, k = 400), bit-equal to the plain
+               version, one launch counted, its plan, the rows per branch
+               and its time beside its bound and the copy and sort it
+               replaced;
                the fused block on blocks
                0-2 of the trained trunk, fed its channels_last
                activations as they are, and on MobileNetV3-Small's and
@@ -112,7 +119,7 @@ package. The script prints one JSON line per phase:
                its defaults: the flagship at 128x128 with 3 classes trains
                300 steps from seed 0 on 32 synthetic images at b16, then
                the predict step evaluates them: AP50 >= 0.5, every logged
-               loss finite and falling, K1 and K2 launched by the
+               loss finite and falling, K3, K1 and K2 launched by the
                evaluation alone (counts reset before, read after), and on
                its first batch K1 (P = 48, K = 50) and K2 bit-equal to
                their plain versions, the evaluation's detections bit-equal
@@ -182,7 +189,8 @@ package. The script prints one JSON line per phase:
                flagship in the reference and fused modes at b1 and b32 on
                the e2e frames (4 requests), detections bit-equal to the
                eager predict step, K1 and K2 launched inside the program
-               1 and 2 times a batch and K3 never, the fused program's
+               1 and 2 times a batch and K3 once a batch of the reference
+               pipeline (the fused program's fallback), the fused program's
                branch per batch (the K of its NMS launch); export s,
                artifact MB, ms per batch of the artifact beside the eager
                step, in turns; the random-weight flagship's fused program
@@ -223,8 +231,8 @@ package. The script prints one JSON line per phase:
                trained npz at b32: tools/profile_model_torch.py traces 5
                predict calls (reference, fp32) and 5 train steps (bf16),
                tools/trace_op_stats_torch.py splits each trace (device
-               busy ms and idle share, categories, K1 and K2 launches per
-               iteration: 1 and 2 a predict call, equal to the wrappers'
+               busy ms and idle share, categories, K3, K1 and K2 launches
+               per iteration: 1, 1 and 2 a predict call, equal to the wrappers'
                counts over the traced calls, none in training; busy time
                within 10 % of trace_calls' on the same step), and
                tools/roofline_report_torch.py gives each step's floor on
@@ -424,8 +432,9 @@ def shapes_images(rng, b, size=320, max_gt=8):
 
 def head_to_candidates(det, outputs):
     """The main path's postprocess up to the NMS: scores, boxes, the
-    per-(image, class) candidates with the gather indices that made them,
-    and the foreground score rows the top-k takes."""
+    per-(image, class) candidates with the gather indices that made them
+    (K3's, dead slots at anchor 0), and the foreground score rows made
+    contiguous, for the top-k's register and long-row launches."""
     import torch
 
     from demonet_tpu_torch.models import detection
@@ -437,7 +446,8 @@ def head_to_candidates(det, outputs):
     b, a, c = scores.shape
     k = min(cfg.topk_candidates, a)
     fg = scores[..., 1:].transpose(1, 2).contiguous()
-    _, top_idx = detection._sorted_topk(fg, k)
+    _, top_idx = detection.topk_sparse(scores[..., 1:].transpose(1, 2), k,
+                                       cfg.score_thresh, max(8, -(-k // 128)))
     cand_boxes, cand_sc = detection._select_candidates(
         scores, boxes, cfg, "exact", "auto")
     return {
@@ -544,6 +554,17 @@ def topk_work(rows, k, thresh):
     sort_ops = float((live * torch.log2(live.clamp(min=1.0))).sum())
     nbytes = rows.numel() * 4 + rows.numel() // rows.shape[-1] * k * 8
     return nbytes, rows.numel() + sort_ops
+
+
+def class_topk_work(scores, k, thresh):
+    """Bytes and operations of the per-class top-k on the (B, A, C)
+    softmax output as its class-tile launch reads it: the whole tensor
+    read once (the background column lies in the same sectors), (score,
+    index) written for each slot of the B x (C - 1) rows, and topk_work's
+    operations on the foreground rows."""
+    b, _, c = scores.shape
+    _, ops = topk_work(scores[..., 1:].transpose(1, 2), k, thresh)
+    return scores.numel() * 4 + b * (c - 1) * k * 8, ops
 
 
 def block_work(x, folded, out):
@@ -953,6 +974,90 @@ def topk_long(dev, time_it):
                          "dense": branches["dense"]}}
         del cases
     return timings
+
+
+def topk_class_tile(trained, batches, dev):
+    """kernel_topk_class_tile: K3's class-tile launch at the serve cells'
+    shapes, b128 on the (B, A, C) softmax output as the reference
+    postprocess hands it over: the trained flagship (A = 3,234, C = 91,
+    k = 300, score_thresh 0.001) on the 4 e2e batches, and ssd300_vgg16
+    from seeded weights (A = 8,732, C = 91, k = 400, score_thresh 0.01),
+    its forward 32 frames at a time. Each against topk_sparse_plain on the
+    rows made contiguous, bit-equal on every entry; one class-tile launch
+    counted per call, no other; the plan (rows a block holds, warp
+    groups, shared bytes), the rows per branch (topk_branches), and the
+    time beside class_topk_work's bound, the plain version's and that of
+    the copy and stable sort it replaces. Returns {shape name: row}."""
+    import numpy as np
+    import torch
+
+    from demonet_tpu_torch.models import detection
+    from demonet_tpu_torch.models.builders import get_model
+    from demonet_tpu_torch.models.detection import preprocess
+    from demonet_tpu_torch.ops import topk as topk_mod
+
+    def scores_of(det, frames):
+        anchors = torch.as_tensor(det.anchors, device=dev)
+        with torch.inference_mode():
+            heads = [det.model(preprocess(f, det.config, resize=False))
+                     for f in frames]
+            return detection._scores_and_boxes(
+                torch.cat([h["cls_logits"] for h in heads]),
+                torch.cat([h["bbox_regression"] for h in heads]), anchors,
+                det.config)[0]
+
+    vgg = get_model("ssd300_vgg16", seed=0)
+    rng = np.random.default_rng(17)
+    shapes = {"ssdlite320_trained": (trained, scores_of(trained, batches)),
+              "ssd300_seeded": (vgg, scores_of(vgg, [
+                  torch.from_numpy(shapes_images(rng, 32, 300)[0]).to(dev)
+                  for _ in range(4)]))}
+    del vgg
+    out = {}
+    for name, (det, scores) in shapes.items():
+        cfg = det.config
+        b, a, c = scores.shape
+        k = min(cfg.topk_candidates, a)
+        slots, st = max(8, -(-k // 128)), cfg.score_thresh
+        view = scores[..., 1:].transpose(1, 2)
+        rows = view.contiguous()
+        before = (topk_mod.topk_sparse.launches,
+                  topk_mod.topk_sparse.long_launches,
+                  topk_mod.topk_sparse.class_tile_launches)
+        k_sc, k_idx = topk_mod.topk_sparse(view, k, st, slots)
+        after = (topk_mod.topk_sparse.launches,
+                 topk_mod.topk_sparse.long_launches,
+                 topk_mod.topk_sparse.class_tile_launches)
+        p_sc, p_idx = topk_mod.topk_sparse_plain(rows, k, st)
+        torch.cuda.synchronize()
+        record_err(("topk_sparse", f"topk_sparse/class_tile_{name}"), k_sc,
+                   p_sc)
+        check(torch.equal(k_sc.view(torch.int32), p_sc.view(torch.int32))
+              and torch.equal(k_idx, p_idx),
+              f"class-tile launch != plain on {name} "
+              f"({int((k_idx != p_idx).sum())} indices differ)")
+        check(after == (before[0] + 1, before[1], before[2] + 1),
+              f"{name}: counts {before} -> {after}, want one class-tile "
+              "launch")
+        nbytes, ops = class_topk_work(scores, k, st)
+        bms, by = bound(nbytes, ops)
+        k_t = timed(lambda: topk_mod.topk_sparse(view, k, st, slots), 20)
+        p_t = timed(lambda: topk_mod.topk_sparse_plain(view, k, st), 5)
+        r_t = timed(lambda: torch.sort(view.contiguous(), dim=-1,
+                                       descending=True, stable=True), 5)
+        out[name] = {
+            "shape": [b, a, c], "k": k, "slots": slots, "thresh": st,
+            "plan": dict(zip(("tile", "groups", "smem_bytes"),
+                             topk_mod.class_tile_plan(a, k, slots, c - 1))),
+            "branches": topk_branches(rows.reshape(-1, a), st, k, slots),
+            "ms": k_t["ms"], "bound_ms": bms, "bound_by": by,
+            "bytes": nbytes, "ops": ops, "plain_ms": p_t["ms"],
+            "copy_and_stable_sort_ms": r_t["ms"],
+            "event_ms": k_t["event_ms"], "ms_from": k_t["ms_from"]}
+        emit({"phase": "kernel_topk_class_tile", "shape_of": name,
+              "bit_equal": True, "launches": 1, **out[name]})
+        del scores, view, rows
+    return out
 
 
 def word_boundary_problems(k, seed=11):
@@ -1627,14 +1732,16 @@ def families(reset_counts, read_counts):
 
       * predict through `make_predict_step` in the three modes, 2 requests
         of 32, counts reset just before and read just after each mode
-        (K1 NMS, K2 gathers, K3 in its register and long-row launches),
+        (K1 NMS, K2 gathers, K3 in its class-tile launch: once a request
+        in the reference and sparse top-k modes, once a fallback batch in
+        the fused one; its long-row launch never),
         every mode's padded detections bit-equal to the reference
         postprocess's on the same head outputs; then closed-loop img/s at
         b32 and b128 with the forward / postprocess split;
       * the head outputs on the card against the CPU's, 2 frames, 1e-3;
-      * K3 (k = 400: the long-row launch on the VGG rows, the register
-        launch on the others) and K1 (K = 400) and K2 on the rows the
-        model gave, bit-equal to their plain versions, and timed;
+      * K3 (k = 400, its class-tile launch on the model's (B, A, C)
+        scores) and K1 (K = 400) and K2 on the rows the model gave,
+        bit-equal to their plain versions, and timed;
       * one train step per family (family_train).
 
     Returns {'launches_by_path', 'kernels': per kernel name, the rows of
@@ -1659,7 +1766,7 @@ def families(reset_counts, read_counts):
         nms_keep_batch_plain,
     )
     from demonet_tpu_torch.ops.topk import (
-        MAX_ROW,
+        class_tile_plan,
         topk_sparse,
         topk_sparse_plain,
     )
@@ -1667,7 +1774,7 @@ def families(reset_counts, read_counts):
     b, thr = _FAMILY_BATCH, _NEG_INF / 2
     launches_by_path = {}
     kernels = {"nms_keep_batch": {}, "gather_rows_batch": {},
-               "topk_sparse": {}, "topk_sparse_long": {}}
+               "topk_sparse": {}}
     branches = detection._postprocess_fused.branches
     for fi, name in enumerate(_FAMILIES):
         torch.cuda.reset_peak_memory_stats()
@@ -1697,7 +1804,6 @@ def families(reset_counts, read_counts):
         d, k, c = cfg.detections_per_img, cfg.topk_candidates, cfg.num_classes
         anchors = torch.as_tensor(det.anchors, device="cuda")
         a = anchors.shape[0]
-        long_rows = a > MAX_ROW
         n = _FAMILY_REQUESTS
         xs = [torch.from_numpy(shapes_images(rng, b, size)[0]).cuda()
               for _ in range(n)]
@@ -1722,11 +1828,10 @@ def families(reset_counts, read_counts):
             torch.cuda.synchronize()
             counts = read_counts()
             taken = dict(branches)
-            sparse = mode == "sparse_topk"
+            k3 = taken.get("fallback", 0) if mode == "fused" else n
             want = {"nms_keep_batch": n, "gather_rows_batch": 2 * n,
-                    "topk_sparse": n if sparse else 0,
-                    "fused_inverted_residual": 0,
-                    "topk_sparse_long": n if sparse and long_rows else 0}
+                    "topk_sparse": k3, "fused_inverted_residual": 0,
+                    "topk_sparse_long": 0, "topk_sparse_class_tile": k3}
             check(counts == want and (mode != "fused"
                                       or sum(taken.values()) == n),
                   f"{name} {mode}: launches {counts}, want {want}; "
@@ -1753,8 +1858,6 @@ def families(reset_counts, read_counts):
             check(same, f"{name} {mode}: detections != the reference "
                   "postprocess's on the same head outputs")
             paths[mode] = {"launches": counts,
-                           "k3_register_launches": counts["topk_sparse"]
-                           - counts["topk_sparse_long"],
                            "valid_detections": n_valid,
                            "bit_equal_to_reference_postprocess": True,
                            **({"branches": taken} if mode == "fused"
@@ -1768,15 +1871,17 @@ def families(reset_counts, read_counts):
             out = det.model(preprocess(xs[0], cfg, resize=False))
             cand = head_to_candidates(det, out)
         rows = cand["fg"].reshape(-1, a)                  # (B x (C-1), A)
+        view = cand["scores"][..., 1:].transpose(1, 2)    # (B, C-1, A)
         p = rows.shape[0]
         slots = max(8, -(-k // 128))
-        key3 = "topk_sparse_long" if long_rows else "topk_sparse"
-        k_sc, k_idx = topk_sparse(rows, k, cfg.score_thresh, slots)
+        k_sc, k_idx = topk_sparse(view, k, cfg.score_thresh, slots)
         p_sc, p_idx = topk_sparse_plain(rows, k, cfg.score_thresh)
         torch.cuda.synchronize()
-        record_err(("topk_sparse", key3, f"{key3}/{name}"), k_sc, p_sc)
-        check(torch.equal(k_sc.view(torch.int32), p_sc.view(torch.int32))
-              and torch.equal(k_idx, p_idx),
+        record_err(("topk_sparse", f"topk_sparse/{name}"), k_sc.reshape(p, k),
+                   p_sc)
+        check(torch.equal(k_sc.reshape(p, k).view(torch.int32),
+                          p_sc.view(torch.int32))
+              and torch.equal(k_idx.reshape(p, k), p_idx),
               f"{name}: K3 != plain on the model's rows")
         nb, ns = cand["cand_boxes"], cand["cand_sc"]
         keep = nms_keep_batch(nb, ns, cfg.nms_thresh, thr)
@@ -1802,20 +1907,21 @@ def families(reset_counts, read_counts):
             return sum(v[kernel] for pth, v in launches_by_path.items()
                        if pth.startswith(name + "/"))
 
-        nbytes, ops = topk_work(rows, k, cfg.score_thresh)
+        nbytes, ops = class_topk_work(cand["scores"], k, cfg.score_thresh)
         bms, by = bound(nbytes, ops)
-        t_k = timed(lambda: topk_sparse(rows, k, cfg.score_thresh, slots), 20)
-        t_p = timed(lambda: topk_sparse_plain(rows, k, cfg.score_thresh), 5)
-        t_l = timed(lambda: torch.topk(rows, k, dim=-1), 10)
-        kernels[key3][name] = {
-            "shape": [p, a], "k": k, "slots": slots,
-            "launch": "topk_sparse_long" if long_rows else "register",
+        t_k = timed(lambda: topk_sparse(view, k, cfg.score_thresh, slots), 20)
+        t_p = timed(lambda: topk_sparse_plain(view, k, cfg.score_thresh), 5)
+        t_l = timed(lambda: torch.topk(view, k, dim=-1), 10)
+        kernels["topk_sparse"][name] = {
+            "shape": list(view.shape), "k": k, "slots": slots,
+            "launch": "class_tile",
+            "plan": dict(zip(("tile", "groups", "smem_bytes"),
+                             class_tile_plan(a, k, slots, c - 1))),
             "ms": t_k["ms"], "plain_ms": t_p["ms"], "bound_ms": bms,
             "bound_by": by, "library_ms": t_l["ms"],
-            "library": f"torch.topk(k={k}) on the same rows",
-            "launches": launches_of("topk_sparse_long" if long_rows
-                                    else "topk_sparse"),
-            "max_abs_err": _MAX_ERR[f"{key3}/{name}"],
+            "library": f"torch.topk(k={k}) on the same view",
+            "launches": launches_of("topk_sparse_class_tile"),
+            "max_abs_err": _MAX_ERR[f"topk_sparse/{name}"],
             "branches": topk_branches(rows, cfg.score_thresh, k, slots),
             "bytes": nbytes, "ops": ops, "event_ms": t_k["event_ms"],
             "ms_from": t_k["ms_from"]}
@@ -2224,8 +2330,9 @@ def overfit(reset_counts, read_counts):
     128x128 with 3 classes from seed 0 trains 300 steps on 32 synthetic
     images, then the predict step evaluates them (COCO AP50, the tool's
     gate 0.5). The counts are reset before the run and read after it: the
-    training launches no kernel, the evaluation K1 once and K2 twice a
-    batch. Every logged loss finite and the last below the first. On the
+    training launches no kernel, the evaluation K3 (its class-tile
+    launch) and K1 once and K2 twice a batch. Every logged loss finite and
+    the last below the first. On the
     first evaluation batch, K1 (P = 16 x 3 problems of K = 50) and K2
     against their plain versions on the same head outputs, bit-equal, and
     the evaluation's detections of those images bit-equal to the predict
@@ -2259,8 +2366,8 @@ def overfit(reset_counts, read_counts):
     counts = read_counts()
     n_eval = -(-args.num_images // args.batch_size)
     want = {"nms_keep_batch": n_eval, "gather_rows_batch": 2 * n_eval,
-            "topk_sparse": 0, "topk_sparse_long": 0,
-            "fused_inverted_residual": 0}
+            "topk_sparse": n_eval, "topk_sparse_long": 0,
+            "topk_sparse_class_tile": n_eval, "fused_inverted_residual": 0}
     check(counts == want, f"overfit: launches {counts}, want {want}")
     losses = [loss for _, loss, _ in out["losses"]]
     check(len(losses) == args.steps // 50
@@ -2387,8 +2494,8 @@ def profile_tools(card, reset_counts, read_counts):
             ["--mode", mode, "--batch-size", str(_PROFILE_BATCH),
              "--iters", str(_PROFILE_ITERS), "--npz-weights", _NPZ,
              "--logdir", _PROFILE_DIR, *extra])
-        want = ({"nms_keep_batch": 1, "gather_rows_batch": 2}
-                if mode == "predict" else {})
+        want = ({"nms_keep_batch": 1, "gather_rows_batch": 2,
+                 "topk_sparse": 1} if mode == "predict" else {})
         dtype = "bf16" if args.bf16 else "fp32"
         reset_counts()
         device, run = profile.build_step(args)
@@ -2997,8 +3104,10 @@ def entry_points(trained, batches, sizes, reset_counts, read_counts):
         c = launches["entry_points/eval_voc"]
         n_batches = -(-_VOC_FRAMES // _VOC_BATCH)
         check(c["nms_keep_batch"] == n_batches
-              and c["gather_rows_batch"] == 2 * n_batches,
-              f"eval_voc launched {c}: want 1 NMS and 2 gathers per batch")
+              and c["gather_rows_batch"] == 2 * n_batches
+              and c["topk_sparse_class_tile"] == n_batches,
+              f"eval_voc launched {c}: want 1 top-k, 1 NMS and 2 gathers "
+              "per batch")
         ap_diff = max(abs(card_ev.aps[k] - cpu_ev.aps[k]) for k in cpu_ev.aps)
         check(ap_diff <= 1e-3, f"eval_voc: the card's APs differ from the "
               f"CPU's by {ap_diff} (limit 1e-3)")
@@ -3272,10 +3381,6 @@ def bf16_serving(trained, batches, sizes, reset_counts, read_counts):
 
     # -- the three modes, counted ----------------------------------------
     launches, paths = {}, {}
-    want_counts = {mode: {"nms_keep_batch": 4, "gather_rows_batch": 8,
-                          "topk_sparse": 4 if mode == "sparse_topk" else 0,
-                          "fused_inverted_residual": 0,
-                          "topk_sparse_long": 0} for mode in _BF16_MODES}
     for mode, kw in _BF16_MODES.items():
         step = make_predict_step(det, **kw)
         step(det.model, batches[0], sizes)
@@ -3289,10 +3394,14 @@ def bf16_serving(trained, batches, sizes, reset_counts, read_counts):
                          if branches[k] != before.get(k, 0))
         torch.cuda.synchronize()
         counts = read_counts()
-        check(counts == want_counts[mode]
+        k3 = taken.count("fallback") if mode == "fused" else len(batches)
+        want = {"nms_keep_batch": 4, "gather_rows_batch": 8,
+                "topk_sparse": k3, "fused_inverted_residual": 0,
+                "topk_sparse_long": 0, "topk_sparse_class_tile": k3}
+        check(counts == want
               and (mode != "fused" or len(taken) == len(batches)),
-              f"bf16 {mode}: launches {counts}, want {want_counts[mode]} as "
-              f"in float32; branches {taken}")
+              f"bf16 {mode}: launches {counts}, want {want} as in float32; "
+              f"branches {taken}")
         launches[f"bf16/flagship/{mode}"] = counts
         worst_box = 0.0
         for x, d in zip(batches, dets):
@@ -3334,7 +3443,9 @@ def bf16_serving(trained, batches, sizes, reset_counts, read_counts):
     g_out = {n: (gather_rows_batch(t, i), gather_rows_batch_plain(t, i))
              for n, (t, i) in g_cases.items()}
     rows = cand["fg"].reshape(-1, anchors.shape[0])
-    k_sc, k_idx = topk_sparse(rows, _TOPK_K, cfg.score_thresh, _TOPK_SLOTS)
+    k_sc, k_idx = (t.reshape(rows.shape[0], _TOPK_K) for t in topk_sparse(
+        cand["scores"][..., 1:].transpose(1, 2), _TOPK_K, cfg.score_thresh,
+        _TOPK_SLOTS))
     p_sc, p_idx = topk_sparse_plain(rows, _TOPK_K, cfg.score_thresh)
     torch.cuda.synchronize()
     record_err(("nms_keep_batch", "nms_keep_batch/bf16"), keep, p_keep)
@@ -3516,8 +3627,9 @@ def bf16_training():
 def bf16_families(reset_counts, read_counts):
     """The four other families in bf16, each from family_detectors' seeded
     (calibrated) weights with its class head scaled, switched to bf16
-    compute: one counted request of 32 per mode (K1, K2, K3 in its launch
-    by A), detections equal to the reference postprocess's on the same
+    compute: one counted request of 32 per mode (K1, K2, K3 in its
+    class-tile launch), detections equal to the reference postprocess's on
+    the same
     bf16 head outputs; forward ms in float32 and bf16 and closed-loop
     img/s at b32 and b128 per mode; VGG's top device kernels in a bf16
     forward; one train step each (bf16, its family's batch and rate):
@@ -3526,15 +3638,16 @@ def bf16_families(reset_counts, read_counts):
     import torch
 
     from demonet_tpu_torch.engine.evaluate import make_predict_step
+    from demonet_tpu_torch.models import detection
     from demonet_tpu_torch.models.builders import get_model
     from demonet_tpu_torch.models.detection import (
         postprocess_detections,
         preprocess,
     )
     from demonet_tpu_torch.models.layers import set_compute_dtype
-    from demonet_tpu_torch.ops.topk import MAX_ROW
 
     bf16 = torch.bfloat16
+    branches = detection._postprocess_fused.branches
     launches = {}
     for fi, name in enumerate(_FAMILIES):
         t0_phase = time.perf_counter()
@@ -3543,7 +3656,6 @@ def bf16_families(reset_counts, read_counts):
         peak_class_head(det)
         cfg, size = det.config, det.config.size[0]
         anchors = torch.as_tensor(det.anchors, device="cuda")
-        long_rows = anchors.shape[0] > MAX_ROW
         rng = np.random.default_rng(300 + fi)
         x = torch.from_numpy(shapes_images(rng, _FAMILY_BATCH, size)[0]).cuda()
         sizes = torch.tensor([[480, 640]] * _FAMILY_BATCH, dtype=torch.int32,
@@ -3558,11 +3670,10 @@ def bf16_families(reset_counts, read_counts):
             d = step(det.model, x, sizes)
             torch.cuda.synchronize()
             counts = read_counts()
-            sparse = mode == "sparse_topk"
+            k3 = (branches.get("fallback", 0) if mode == "fused" else 1)
             want = {"nms_keep_batch": 1, "gather_rows_batch": 2,
-                    "topk_sparse": 1 if sparse else 0,
-                    "fused_inverted_residual": 0,
-                    "topk_sparse_long": 1 if sparse and long_rows else 0}
+                    "topk_sparse": k3, "fused_inverted_residual": 0,
+                    "topk_sparse_long": 0, "topk_sparse_class_tile": k3}
             check(counts == want, f"bf16 {name} {mode}: launches {counts}, "
                   f"want {want}")
             launches[f"bf16/{name}/{mode}"] = counts
@@ -4129,6 +4240,7 @@ def _dist_rank(rank, backend, port, out_path, log_path):
         for fn in kernels:
             fn.launches = 0
         topk_sparse.long_launches = 0
+        topk_sparse.class_tile_launches = 0
         with open(log_path, "w") as log, contextlib.redirect_stdout(log):
             ev = evaluate(make_predict_step(ev_det, mesh=mesh,
                                             topk_impl="sparse"),
@@ -4138,6 +4250,7 @@ def _dist_rank(rank, backend, port, out_path, log_path):
         torch.cuda.synchronize()
         counts = {fn.__name__: fn.launches for fn in kernels}
         counts["topk_sparse_long"] = topk_sparse.long_launches
+        counts["topk_sparse_class_tile"] = topk_sparse.class_tile_launches
         torch.save({"backend": dist.get_backend(), "metrics": metrics,
                     "state": after, "step_ms": timed_ms, "bucket": bucket,
                     "mesh_1x2": mesh_1x2,
@@ -4254,8 +4367,8 @@ def distributed(trained, batches, sizes, reset_counts, read_counts):
         bucket_w1 = bucket_all_reduce(det.model)
         del det, state, step, p_state, p_step
         predict_w1 = {}
-        for mode, kw, k3 in (("reference", {}, 0),
-                             ("sparse_topk", {"topk_impl": "sparse"}, 1)):
+        for mode, kw in (("reference", {}),
+                         ("sparse_topk", {"topk_impl": "sparse"})):
             want = [make_predict_step(trained, **kw)(trained.model, x, sizes)
                     for x in batches]
             mesh_step = make_predict_step(trained, mesh=mesh, **kw)
@@ -4268,7 +4381,8 @@ def distributed(trained, batches, sizes, reset_counts, read_counts):
             n = len(batches)
             check(counts["nms_keep_batch"] == n
                   and counts["gather_rows_batch"] == 2 * n
-                  and counts["topk_sparse"] == k3 * n,
+                  and counts["topk_sparse"] == n
+                  and counts["topk_sparse_class_tile"] == n,
                   f"world-1 mesh predict ({mode}) launched {counts}")
             check(all(torch.equal(g[k], w[k]) for g, w in zip(got, want)
                       for k in w),
@@ -4360,8 +4474,9 @@ def distributed(trained, batches, sizes, reset_counts, read_counts):
     for r, res in enumerate(ranks):
         c = res["launches"]
         check(c["nms_keep_batch"] > 0 and c["gather_rows_batch"] > 0
-              and c["topk_sparse"] > 0,
-              f"rank {r}'s sharded evaluation launched {c}: want K1, K2, K3")
+              and c["topk_sparse"] == c["topk_sparse_class_tile"] > 0,
+              f"rank {r}'s sharded evaluation launched {c}: want K1, K2, K3 "
+              "(its class-tile launch)")
         launches[f"distributed/rank{r}_evaluate"] = {
             "fused_inverted_residual": 0, **c}
 
@@ -4456,8 +4571,10 @@ def export_artifacts(trained, random_init, batches, reset_counts,
         fused modes at b1 and b32, on the `e2e` frames (4 requests at b32;
         the first frame of each at b1): detections bit-equal to the eager
         `make_predict_step` in the same mode; K1 and K2 launched inside the
-        program 1 and 2 times a batch, K3 never (counts reset before and
-        read after the 4 requests); the fused program's branch on each
+        program 1 and 2 times a batch, K3 (its class-tile launch) once a
+        batch of the reference pipeline, the fused program's fallback
+        included (counts reset before and read after the 4 requests); the
+        fused program's branch on each
         batch, read from the K of its NMS launch (K = 300: the reference
         fallback, K = R: tier R); export s, artifact MB, ms per batch
         (median, q1-q3) of the artifact beside the eager step, the two
@@ -4543,10 +4660,12 @@ def export_artifacts(trained, random_init, batches, reset_counts,
               "under cudnn_deterministic()")
         return outs, counts, ks, True
 
-    def want_counts(n):
+    def want_counts(n, k3):
+        """K1 once and K2 twice in each of n batches, K3 (its class-tile
+        launch) in k3 of them: the reference pipeline's."""
         return {"nms_keep_batch": n, "gather_rows_batch": 2 * n,
-                "topk_sparse": 0, "fused_inverted_residual": 0,
-                "topk_sparse_long": 0}
+                "topk_sparse": k3, "fused_inverted_residual": 0,
+                "topk_sparse_long": 0, "topk_sparse_class_tile": k3}
 
     def in_turns(program, step, det, x, iters):
         """ms per batch of the program and of the eager step, closed loop,
@@ -4591,9 +4710,11 @@ def export_artifacts(trained, random_init, batches, reset_counts,
                     postprocess_impl=mode)
                 outs, counts, ks, det_needed = compare(program, step,
                                                        trained, xs)
-                check(counts == want_counts(len(xs)),
+                k3 = len(xs) if mode == "reference" else ks.count(k_ref)
+                check(counts == want_counts(len(xs), k3),
                       f"export {mode} b{b}: launches {counts}, want 1 NMS "
-                      "and 2 gathers a batch inside the program, no top-k")
+                      "and 2 gathers a batch inside the program, 1 top-k "
+                      "a batch of the reference pipeline")
                 check(len(ks) == len(xs) and (mode == "fused"
                                               or set(ks) == {k_ref}),
                       f"export {mode} b{b}: NMS launches at K {ks}")
@@ -4625,7 +4746,7 @@ def export_artifacts(trained, random_init, batches, reset_counts,
             postprocess_impl="fused")
         _, counts, ks, det_needed = compare(program, step, random_init,
                                             frames[:1])
-        check(counts == want_counts(1) and ks == [k_ref],
+        check(counts == want_counts(1, 1) and ks == [k_ref],
               f"random-weight fused program: launches {counts}, NMS at K "
               f"{ks}, want the fallback (K = {k_ref})")
         launches_by_path[f"export/fused_random_b{b_e2e}"] = counts
@@ -4676,7 +4797,7 @@ def export_artifacts(trained, random_init, batches, reset_counts,
             step = make_predict_step(det)
             program, export_s, io_s, mb = artifact(det, tmp, name)
             outs, counts, ks, det_needed = compare(program, step, det, xs)
-            check(counts == want_counts(len(xs)),
+            check(counts == want_counts(len(xs), len(xs)),
                   f"export {name}: launches {counts}")
             path = f"export/{name}_reference_b1"
             launches_by_path[path] = counts
@@ -4694,7 +4815,7 @@ def export_artifacts(trained, random_init, batches, reset_counts,
         program, export_s, io_s, mb = artifact(det, tmp, "bf16",
                                                batch_size=b_e2e)
         outs, counts, ks, det_needed = compare(program, step, det, frames)
-        check(counts == want_counts(len(frames)),
+        check(counts == want_counts(len(frames), len(frames)),
               f"export bf16: launches {counts}")
         path = f"export/bf16_reference_b{b_e2e}"
         launches_by_path[path] = counts
@@ -5109,8 +5230,9 @@ def cpp_runner(trained, batches, packaging):
         libtorch, the ops library linked to K1's and K2's nvcc libraries;
       * the trained flagship (91 classes, 320x320) packaged by AOTInductor
         at b1 in the reference and fused modes, from the programs the
-        export phase saved, in `packaging`'s processes (compile s, MB; K1
-        and K2 extern nodes of the package, K3 none); every child has
+        export phase saved, in `packaging`'s processes (compile s, MB; K1,
+        K2 and K3 extern nodes of the package, K3 in the fused package's
+        fallback branch); every child has
         exited before the first timed call here, so no compile shares the
         host with a timing;
       * the runner on each, 50 timed calls on the first `e2e` frame
@@ -5118,7 +5240,9 @@ def cpp_runner(trained, batches, packaging):
         tier), its outputs dumped: bit-equal to the Python call of the same
         package on the same input, both under `aoti.runner_numerics()`;
         its K1 and K2 counts: 1 and 2 every call, K1 in the block launch
-        (reference) or the tiled one (a fused tier); its detections against
+        (reference) or the tiled one (a fused tier), K3 once a call of the
+        reference package (its launch shape reported) and never on the
+        fused tier; its detections against
         the eager step in the same mode and against the same postprocess
         on the eager heads with K1 and K2 in their plain versions (the
         runner's launches of K1 and K2 held to plain PyTorch at this path's
@@ -5166,7 +5290,7 @@ def cpp_runner(trained, batches, packaging):
         ldd[os.path.basename(path)] = sorted(
             ln.split()[0] for ln in out.splitlines()
             if "torch" in ln or "c10" in ln or ln.split()[0].startswith(
-                ("nms-", "gather-")))
+                ("nms-", "gather-", "topk-")))
     emit({"phase": "cpp_runner_build", "seconds": printed(logs["build"],
                                                           "seconds"),
           "runner": os.path.basename(runner.runner),
@@ -5186,7 +5310,8 @@ def cpp_runner(trained, batches, packaging):
             externs = sorted({nd["node"]["target"] for nd in
                               json.loads(z.read(meta))["nodes"]})
         check(externs == ["demonet_tpu_torch::gather_rows_batch",
-                          "demonet_tpu_torch::nms_keep_batch"],
+                          "demonet_tpu_torch::nms_keep_batch",
+                          "demonet_tpu_torch::topk_sparse"],
               f"{mode} package's extern nodes {externs}")
         prefix = os.path.join(packaging.dir, mode)
         res = aoti.run_runner(runner, path, tuple(x.shape), iters=_CPP_ITERS,
@@ -5194,12 +5319,14 @@ def cpp_runner(trained, batches, packaging):
         per_call = res.launches
         shapes = [s for s in ("block", "tiled", "long")
                   if per_call.get(f"nms_keep_batch.{s}")]
+        k3 = 1 if mode == "reference" else 0
         check(res.device == "cuda" and per_call.get("nms_keep_batch") == 1
               and per_call.get("gather_rows_batch") == 2
+              and per_call.get("topk_sparse") == k3
               and shapes == ["block" if mode == "reference" else "tiled"],
               f"{mode}: the runner on {res.device} launched {per_call} a "
-              "call; want K1 once (block launch, or tiled on a fused tier) "
-              "and K2 twice on cuda")
+              "call; want K1 once (block launch, or tiled on a fused tier), "
+              f"K2 twice and K3 {k3} times on cuda")
         diffs = aoti.check_parity(path, prefix, x)
         compiled = aoti.load_package(path)
         step = make_predict_step(trained, impl=mode)
@@ -5231,8 +5358,12 @@ def cpp_runner(trained, batches, packaging):
         launches = {"nms_keep_batch": per_call["nms_keep_batch"] * res.calls,
                     "gather_rows_batch": per_call["gather_rows_batch"]
                     * res.calls,
-                    "topk_sparse": 0, "fused_inverted_residual": 0,
-                    "topk_sparse_long": 0}
+                    "topk_sparse": per_call["topk_sparse"] * res.calls,
+                    "fused_inverted_residual": 0,
+                    "topk_sparse_long": per_call["topk_sparse.long"]
+                    * res.calls,
+                    "topk_sparse_class_tile": per_call[
+                        "topk_sparse.class_tile"] * res.calls}
         launches_by_path[f"cpp_runner/{mode}_b1"] = launches
         emit({"phase": "cpp_runner", "package": f"cpp_runner/{mode}_b1",
               "compile_s": printed(logs[mode], "seconds"),
@@ -5363,12 +5494,14 @@ def main():
         for fn in counters.values():
             fn.launches = 0
         topk_sparse.long_launches = 0
+        topk_sparse.class_tile_launches = 0
         nms_keep_batch.launches_by_k.clear()
         branches.clear()
 
     def read_counts():
         return {**{name: fn.launches for name, fn in counters.items()},
-                "topk_sparse_long": topk_sparse.long_launches}
+                "topk_sparse_long": topk_sparse.long_launches,
+                "topk_sparse_class_tile": topk_sparse.class_tile_launches}
 
     # -- kernels against their plain versions at the main paths' shapes ----
     regimes = {}
@@ -5589,6 +5722,7 @@ def main():
                 "ms_from": k_t["ms_from"]}
 
     topk_long_times = topk_long(dev, topk_long_row)
+    class_tile_times = topk_class_tile(trained, batches, dev)
 
     # fused inverted-residual block: blocks 0-2 of the trained trunk on
     # the trunk's own activations (channels_last in memory on the card,
@@ -5690,22 +5824,23 @@ def main():
     launches_by_path = {}
     dets, counts, _ = drive(make_predict_step(trained))
     check(counts == {"nms_keep_batch": 4, "gather_rows_batch": 8,
-                     "topk_sparse": 0, "fused_inverted_residual": 0,
-                     "topk_sparse_long": 0},
-          f"reference path launch counts {counts}, want 1 NMS and 2 "
-          "gathers per batch")
+                     "topk_sparse": 4, "fused_inverted_residual": 0,
+                     "topk_sparse_long": 0, "topk_sparse_class_tile": 4},
+          f"reference path launch counts {counts}, want 1 top-k (its "
+          "class-tile launch), 1 NMS and 2 gathers per batch")
     launches_by_path["reference"] = counts
     emit({"phase": "main_path", "mode": "reference", "batches": len(batches),
           "batch": b, "launches": counts, "nms_launch": launch_shape(k_ref),
           "valid_detections": check_detections(dets)})
 
     dets, counts, taken = drive(make_predict_step(trained, impl="fused"))
+    k3 = taken.count("fallback")
     check(counts == {"nms_keep_batch": 4, "gather_rows_batch": 8,
-                     "topk_sparse": 0, "fused_inverted_residual": 0,
-                     "topk_sparse_long": 0}
+                     "topk_sparse": k3, "fused_inverted_residual": 0,
+                     "topk_sparse_long": 0, "topk_sparse_class_tile": k3}
           and len(taken) == 4,
           f"fused path launch counts {counts}, branches {taken}: want 1 NMS "
-          "and 2 gathers per batch on every branch")
+          "and 2 gathers per batch on every branch, 1 top-k per fallback")
     launches_by_path["fused"] = counts
     fused_branches = taken
     n_valid = check_detections(dets)
@@ -5729,7 +5864,7 @@ def main():
                                               topk_impl="sparse_pallas"))
     check(counts == {"nms_keep_batch": 4, "gather_rows_batch": 8,
                      "topk_sparse": 4, "fused_inverted_residual": 0,
-                     "topk_sparse_long": 0},
+                     "topk_sparse_long": 0, "topk_sparse_class_tile": 4},
           f"sparse top-k path launch counts {counts}, want 1 top-k, 1 NMS "
           "and 2 gathers per batch")
     launches_by_path["sparse_topk"] = counts
@@ -5940,6 +6075,9 @@ def main():
             **topk_row(topk_cases["random_weights"],
                        regimes["random"][1]["scores"]),
             "branches": topk_rows["random_weights"]},
+        "class_tile": {"launch": "topk_sparse_classes (the reference "
+                       "postprocess's (B, A, C) softmax output, b128)",
+                       **class_tile_times},
         "long_rows": {"launch": "topk_sparse_long (rows over 4,096)",
                       "launches": total_launches("topk_sparse_long"),
                       "launches_by_path": by_path("topk_sparse_long"),
@@ -6078,17 +6216,19 @@ def main():
         if r["name"] != "fused_inverted_residual":
             r["family_shapes"] = fam["kernels"][r["name"]]
     long_row = next(r for r in rows if r["name"] == "topk_sparse")["long_rows"]
-    check(all(launches_by_path[f"{n}/sparse_topk"]["topk_sparse_long"] > 0
-              for n in ("ssd300_vgg16", "ssd512_vgg16")),
-          "the long-row launch did not run on the VGG sparse top-k paths")
+    check(all(launches_by_path[f"{n}/{m}"]["topk_sparse_class_tile"] > 0
+              for n in _FAMILIES for m in ("reference", "sparse_topk"))
+          and total_launches("topk_sparse_long") == 0,
+          "the class-tile launch did not run on every family's reference "
+          "and sparse top-k paths, or the long-row launch ran on a model "
+          "path")
     long_row.update({
         "launches": total_launches("topk_sparse_long"),
         "launches_by_path": by_path("topk_sparse_long"),
-        "launches_from": "the main-path runs: the VGG families' sparse "
-                         "top-k paths, float32 and bf16; kernel_topk_long's "
-                         "checks launch it apart",
-        "max_abs_err": _MAX_ERR["topk_sparse_long"],
-        "family_rows": fam["kernels"]["topk_sparse_long"]})
+        "launches_from": "no model path (the per-class top-k takes the "
+                         "class-tile launch at every row length); "
+                         "kernel_topk_long's checks launch it apart",
+        "max_abs_err": _MAX_ERR["topk_sparse_long"]})
 
     # -- training: the train step and loop, card against the CPU ----------
     # the training path reaches no kernel (as in the JAX package); the

@@ -12,7 +12,7 @@
 //   e.g. aoti_runner ssdlite320.pt2 1x320x320x3 50 ops=aoti_ops-cuda.so
 //
 // ops= is loaded first (RTLD_NOW | RTLD_GLOBAL): the library of
-// csrc/aoti_ops.cc, which registers K1 and K2 from C++. A package whose
+// csrc/aoti_ops.cc, which registers K1, K2 and K3 from C++. A package whose
 // graph holds them cannot run without it. The input goes to the package's
 // own device (its metadata); a CUDA package where no GPU is visible is an
 // error. It is zeros, or the raw float32 of input_file= (its size checked).
@@ -23,7 +23,7 @@
 // completion barrier. dump_out= writes each output of the first call,
 // dense and row-major, to <prefix>.<i>.bin, in the package's flattened
 // output order. It prints the outputs' shapes and dtypes, the times, the
-// ops library's counts of K1 and K2 per call and the number of calls
+// ops library's counts of K1, K2 and K3 per call and the number of calls
 // (warm-up included), and OK. Any error exits 1.
 
 #include <dlfcn.h>
@@ -52,7 +52,9 @@ using LaunchesFn = int64_t (*)(const char*, const char*);
 
 const char* const kCounters[] = {"nms_keep_batch", "nms_keep_batch.block",
                                  "nms_keep_batch.tiled", "nms_keep_batch.long",
-                                 "gather_rows_batch"};
+                                 "gather_rows_batch", "topk_sparse",
+                                 "topk_sparse.long",
+                                 "topk_sparse.class_tile"};
 
 std::vector<int64_t> ParseDims(const std::string& spec) {
   std::vector<int64_t> dims;

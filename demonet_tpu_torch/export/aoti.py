@@ -6,13 +6,14 @@ tools/check_pjrt_parity.py).
     with `torch._inductor.aoti_compile_and_package` into one `.pt2` file:
     preprocess, trunk, heads and postprocess, the weights inside. Inductor
     compiles the graph for the detector's device (C++ on the CPU, Triton
-    kernels and cuDNN calls on the card); K1 and K2 stay calls of the ops
-    `demonet_tpu_torch::nms_keep_batch` and `::gather_rows_batch`, which
-    the package looks up by name when it runs.
+    kernels and cuDNN calls on the card); K1, K2 and K3 stay calls of the
+    ops `demonet_tpu_torch::nms_keep_batch`, `::gather_rows_batch` and
+    `::topk_sparse`, which the package looks up by name when it runs.
   * `build_runner` builds, with g++ against the libtorch inside the torch
     wheel, `csrc/aoti_runner.cc` (the C++ runner) and `csrc/aoti_ops.cc`
-    (K1 and K2 registered from C++, linked on the card to the libraries
-    `ops/_build.py` builds from csrc/nms.cu and csrc/gather.cu). A process
+    (K1, K2 and K3 registered from C++, linked on the card to the
+    libraries `ops/_build.py` builds from csrc/nms.cu, csrc/gather.cu and
+    csrc/topk.cu). A process
     with no Python cannot call the Python ops of `ops/library.py`; the
     runner loads this library first. Never load the ops library into a
     Python process that has imported `demonet_tpu_torch.ops`: the two
@@ -67,6 +68,8 @@ BUILD_DIR = _build.BUILD_DIR
 CXX_FLAGS = ("-std=c++17", "-O2", "-fPIC")
 # the input shape, NxHxWxC, in the package's metadata
 SHAPE_KEY = "demonet_input_shape"
+# the kernel libraries the ops library links on the card: K1, K2, K3
+_KERNELS = ("nms", "gather", "topk")
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 VAL_FRAMES = os.path.join(_REPO, "bench_assets", "val_images_320.npz")
@@ -195,9 +198,9 @@ def _commands(device: str, out: Dict[str, str]) -> Dict[str, List[str]]:
             + [f"-Wl,-rpath-link,{d}" for d in lib_dirs])
     ops_libs = []
     if device == "cuda":
-        # K1 and K2: the libraries of csrc/nms.cu and csrc/gather.cu
+        # K1, K2 and K3: the libraries of csrc/nms.cu, gather.cu, topk.cu
         ops_libs = [f"-L{BUILD_DIR}", f"-Wl,-rpath,{BUILD_DIR}"] + [
-            f"-l:{os.path.basename(out[name])}" for name in ("nms", "gather")]
+            f"-l:{os.path.basename(out[name])}" for name in _KERNELS]
     return {
         "aoti_ops": [cxx, *CXX_FLAGS, abi, *defines, *inc, "-shared",
                      os.path.join(CSRC_DIR, "aoti_ops.cc"), *ops_libs,
@@ -219,14 +222,14 @@ def _output(name: str, device: str, cmd: List[str]) -> str:
 
 def build_runner(device: str = "cuda") -> Runner:
     """Build (or find) the runner and the ops library for `device`
-    ("cuda", or "cpu" for a host with no GPU). On "cuda" the K1 and K2
+    ("cuda", or "cpu" for a host with no GPU). On "cuda" the K1, K2 and K3
     libraries are built first (nvcc) and linked. The two g++ runs go
     together. Raises RuntimeError with the compiler's output if one
     fails."""
     if device not in ("cpu", "cuda"):
         raise ValueError(f"build_runner: device 'cpu' or 'cuda', got "
                          f"{device!r}")
-    kernels = ({name: _build.build(name) for name in ("nms", "gather")}
+    kernels = ({name: _build.build(name) for name in _KERNELS}
                if device == "cuda" else {})
     cmds = _commands(device, kernels)
     outs = {name: _output(name, device, cmd) for name, cmd in cmds.items()}
@@ -292,7 +295,7 @@ def run_runner(runner: Runner, package: str, shape, iters: int = 10,
                threads: Optional[int] = None) -> RunnerResult:
     """Run the built runner on `package` at input shape (N, H, W, C), in a
     process of its own, and read what it printed. `ops=False` leaves the
-    ops library out (a package holding K1 or K2 then cannot run).
+    ops library out (a package holding K1, K2 or K3 then cannot run).
     `check` raises RuntimeError with the runner's output on a nonzero exit.
     On the CPU the runner runs `threads` threads (default: this process's
     count): its convolutions round as a call here with as many threads

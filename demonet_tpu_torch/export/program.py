@@ -11,16 +11,19 @@ padded detections {'boxes', 'scores', 'labels', 'valid'} that
 device.
 
 The postprocess's kernels are custom ops (`ops/library.py`), so the
-program holds K1 (`demonet_tpu_torch::nms_keep_batch`) and K2
-(`::gather_rows_batch`) as nodes: on the card the artifact launches the
-hand-written kernels, on the CPU it runs their plain versions. The fused
-postprocess keeps its guards on the device and chooses its branch with
-nested `torch.cond`s (`models/detection.py::_fused_switch`), as the JAX
-artifact bakes in its `lax.switch`.
+program holds K3 (`demonet_tpu_torch::topk_sparse`, the per-class top-k
+on the softmax output's class-major view), K1 (`::nms_keep_batch`) and
+K2 (`::gather_rows_batch`) as nodes: on the card the artifact launches
+the hand-written kernels, on the CPU it runs their plain versions. The
+fused postprocess keeps its guards on the device and chooses its branch
+with nested `torch.cond`s (`models/detection.py::_fused_switch`), as the
+JAX artifact bakes in its `lax.switch`; its exact fallback branch holds
+K3 too.
 
 The batch size is static, as in the JAX artifact. The top-k is the exact
-one: the JAX `export_detector` passes no `topk_impl`, so no artifact
-reaches K3.
+one, as the JAX `export_detector` passes no `topk_impl`: every
+`topk_impl` name reaches K3, whose detections are bit-equal to a stable
+sort's (`models/detection.py::_select_candidates`).
 """
 
 from __future__ import annotations

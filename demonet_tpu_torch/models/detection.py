@@ -14,19 +14,23 @@
 Detections come back as padded (B, detections_per_img) tensors with a
 `valid` mask, as in the JAX package. The postprocess after softmax/decode
 is gathers, sorts and comparisons only, so given the same scores and
-boxes it is bit-equal to the reference. Its two hot steps run on the
-hand-written CUDA kernels for CUDA tensors: the candidate and final row
-gathers (`ops/gather.py`, csrc/gather.cu), the batched NMS (`ops/nms.py`,
-csrc/nms.cu) and, with topk_impl "sparse" or "sparse_pallas", the
-chunk-skipping top-k (`ops/topk.py`, csrc/topk.cu).
+boxes it is bit-equal to the reference. Its hot steps run on the
+hand-written CUDA kernels for CUDA tensors: the per-class top-k
+(`ops/topk.py`, csrc/topk.cu's class-tile launch, which reads the softmax
+output in place; every topk_impl name), the candidate and final row
+gathers (`ops/gather.py`, csrc/gather.cu) and the batched NMS
+(`ops/nms.py`, csrc/nms.cu). On CPU tensors each runs its plain PyTorch
+version.
 
 `impl="fused"` is the trained-model serving path (`_postprocess_fused`):
 one candidate set per image instead of one per (image, class), with an
 exact fallback to the reference pipeline.
 
-Top-k tie order: `lax.top_k` breaks ties by the smaller index. The port
-takes a stable descending `torch.sort` and slices, which gives the same
-order; `torch.topk` promises none.
+Top-k tie order: `lax.top_k` breaks ties by the smaller index. The
+per-class top-k keeps that order (the kernel's contract, and a stable
+descending `torch.sort` in its plain version); so does the final top
+detections_per_img, a stable `torch.sort` sliced (`_sorted_topk`).
+`torch.topk` promises no order.
 """
 
 from __future__ import annotations
@@ -134,8 +138,7 @@ def _nms_keep(cand_boxes: torch.Tensor, cand_scores: torch.Tensor,
 
     'auto' = the kernel wrapper (csrc/nms.cu on CUDA, the plain version on
     the CPU); 'plain' = the plain PyTorch version on any device. The
-    wrapper takes contiguous tensors only: at B = 1 the scores come out of
-    the per-class sort transposed in memory, so they are copied here.
+    wrapper takes contiguous tensors only.
     """
     if nms_impl == "auto":
         fn = nms_keep_batch
@@ -233,32 +236,35 @@ def _select_candidates(scores: torch.Tensor, boxes: torch.Tensor,
 
     Returns cand_boxes (B, C-1, k, 4) and cand_sc (B, C-1, k).
 
-    topk_impl keeps the JAX package's names:
-      * 'exact' and 'approx': a stable sort. The JAX 'approx'
-        (`lax.approx_max_k`) exists only on the TPU; the exact top-k is
-        within its contract.
-      * 'sparse' and 'sparse_pallas': `ops.topk.topk_sparse`, the kernel
-        csrc/topk.cu on CUDA and its plain version on the CPU. In the JAX
-        package 'sparse' is `topk_sparse_xla`, an XLA formulation of the
-        same function that was faster on the TPU than its Pallas kernel;
-        it has no separate counterpart here. Entries at or below
-        score_thresh come back as padding, which the filter below turns
-        into the same -1e30 the exact top-k gives them, so the
-        detections are bit-equal to 'exact'.
+    Every topk_impl name of the JAX package ('exact', 'approx', 'sparse',
+    'sparse_pallas') reaches one implementation, `ops.topk.topk_sparse`,
+    on the (B, C-1, A) view of the softmax output, never copied: on CUDA
+    the kernel csrc/topk.cu in its class-tile launch, on the CPU its plain
+    version, the stable sort of the masked rows. (The JAX 'approx',
+    `lax.approx_max_k`, exists only on the TPU, and the exact top-k is
+    within its contract; the JAX 'sparse' is `topk_sparse_xla`, an XLA
+    formulation of the same function that was faster on the TPU than its
+    Pallas kernel.)
+
+    Why the detections are bit-equal to a stable sort of the unmasked
+    scores, the JAX 'exact': every candidate above score_thresh comes
+    back with the sort's value, index and slot, and every other slot is
+    dead in both, its score set to -1e30 below; only a dead slot's index
+    differs (0 here, a below-threshold anchor there). A dead candidate
+    can neither survive `select`, whose score is -1e30 whatever K1
+    keeps, nor change a live one: it lies after every live candidate of
+    its row, K1 suppresses only later candidates, and an invalid one
+    suppresses none. The box a dead slot gathers is zeroed by `valid`.
     """
     b, a, c = scores.shape
     k = min(config.topk_candidates, a)
-    fg_scores = scores[..., 1:].transpose(1, 2)  # (B, C-1, A)
+    if topk_impl not in ("exact", "approx", "sparse", "sparse_pallas"):
+        raise ValueError("topk_impl must be 'exact', 'approx', 'sparse' "
+                         f"or 'sparse_pallas', got {topk_impl!r}")
     with span("demonet.postprocess.topk"):
-        if topk_impl in ("exact", "approx"):
-            top_sc, top_idx = _sorted_topk(fg_scores, k)
-        elif topk_impl in ("sparse", "sparse_pallas"):
-            slots = max(8, -(-k // 128))
-            top_sc, top_idx = topk_sparse(fg_scores.contiguous(), k,
-                                          config.score_thresh, slots)
-        else:
-            raise ValueError("topk_impl must be 'exact', 'approx', 'sparse' "
-                             f"or 'sparse_pallas', got {topk_impl!r}")
+        top_sc, top_idx = topk_sparse(scores[..., 1:].transpose(1, 2), k,
+                                      config.score_thresh,
+                                      max(8, -(-k // 128)))
     with span("demonet.postprocess.gather"):
         cand_boxes = _gather_rows(boxes, top_idx.reshape(b, -1),
                                   gather_impl).reshape(b, c - 1, k, 4)

@@ -9,15 +9,15 @@ by `load_jax_variables`): the raw heads and the reference postprocess
 (numpy default_rng(0)):
 
   * the runner's dumped outputs are bit-equal to `aoti_load_package` of
-    the same package in Python. Both run the same compiled code; K1 and K2
-    run in the runner as aoti_ops.cc's C++ plain versions and in Python as
-    ops/nms.py's and ops/gather.py's, so this also holds the C++ CPU ops
-    bit-equal to the Python ones;
+    the same package in Python. Both run the same compiled code; K1, K2
+    and K3 run in the runner as aoti_ops.cc's C++ plain versions and in
+    Python as ops/nms.py's, ops/gather.py's and ops/topk.py's, so this
+    also holds the C++ CPU ops bit-equal to the Python ones;
   * they match the JAX `export_detector` artifact within
     tests/test_torch_export.py's tolerances: heads 1e-4, scores 1e-5,
     boxes 1e-3 px, labels and valid counts equal;
-  * the reference package holds K1 and K2 as extern nodes, and the runner
-    counts 1 NMS and 2 gathers a call;
+  * the reference package holds K1, K2 and K3 as extern nodes, and the
+    runner counts 1 per-class top-k, 1 NMS and 2 gathers a call;
   * without the ops library, or with an input file of the wrong size, the
     runner exits nonzero and says why.
 """
@@ -85,16 +85,18 @@ def test_reference_package_keeps_kernels_as_extern_nodes(runs):
     assert sorted(extern_targets(runs["reference"][0])) == [
         "demonet_tpu_torch::gather_rows_batch",
         "demonet_tpu_torch::gather_rows_batch",
-        "demonet_tpu_torch::nms_keep_batch"]
+        "demonet_tpu_torch::nms_keep_batch",
+        "demonet_tpu_torch::topk_sparse"]
     assert extern_targets(runs["raw"][0]) == []
 
 
-@pytest.mark.parametrize("kind,nms,gathers", [("raw", 0, 0),
-                                              ("reference", 1, 2)])
-def test_runner_counts_kernel_calls(kind, nms, gathers, runs):
+@pytest.mark.parametrize("kind,nms,gathers,topk", [("raw", 0, 0, 0),
+                                                   ("reference", 1, 2, 1)])
+def test_runner_counts_kernel_calls(kind, nms, gathers, topk, runs):
     result = runs[kind][1]
     assert result.launches == {"nms_keep_batch": nms,
-                               "gather_rows_batch": gathers}
+                               "gather_rows_batch": gathers,
+                               "topk_sparse": topk}
     assert result.calls == result.iters + 3
 
 
@@ -125,18 +127,22 @@ def test_ops_library_schemas_equal_the_python_ops():
     schemas = sorted("".join(re.findall(r'"([^"]*)"', d)) for d in defs)
     ops = torch.ops.demonet_tpu_torch
     want = sorted(str(getattr(ops, n).default._schema).split("::", 1)[1]
-                  for n in ("nms_keep_batch", "gather_rows_batch"))
+                  for n in ("nms_keep_batch", "gather_rows_batch",
+                            "topk_sparse"))
     assert schemas == want
 
 
 def test_cuda_build_links_the_kernel_libraries():
-    """The card's build, read from its command lines: the CUDA ops, K1's
-    and K2's libraries with their rpath, libtorch_cuda kept as needed."""
-    libs = {"nms": "/b/nms-0123.so", "gather": "/b/gather-4567.so"}
+    """The card's build, read from its command lines: the CUDA ops, K1's,
+    K2's and K3's libraries with their rpath, libtorch_cuda kept as
+    needed."""
+    libs = {"nms": "/b/nms-0123.so", "gather": "/b/gather-4567.so",
+            "topk": "/b/topk-89ab.so"}
     cmds = aoti._commands("cuda", libs)
     ops = cmds["aoti_ops"]
     assert "-DDEMONET_WITH_CUDA" in ops and "-shared" in ops
     assert "-l:nms-0123.so" in ops and "-l:gather-4567.so" in ops
+    assert "-l:topk-89ab.so" in ops
     assert f"-Wl,-rpath,{aoti.BUILD_DIR}" in ops
     for cmd in cmds.values():
         keep = cmd.index("-Wl,--no-as-needed")

@@ -289,23 +289,29 @@ def test_train_cli_tensorboard_writes_scalars(tmp_path, capsys):
                          ids=["reference", "fused", "sparse_topk"])
 def test_predict_step_hands_the_kernels_contiguous_inputs(batch, kw,
                                                           monkeypatch):
-    """The kernels' wrappers refuse a non-contiguous CUDA tensor (no
-    silent copy); the predict step must hand them contiguous ones at every
-    batch size. At B = 1 the per-class scores come out of the sort
-    transposed in memory, and the predict CLI runs one image a call. On
-    the CPU the plain versions take any layout, so the wrappers are
-    watched here."""
+    """The kernels' wrappers refuse a CUDA tensor in a layout their
+    kernels do not read (no silent copy); the predict step must hand them
+    layouts they take at every batch size (the predict CLI runs one image
+    a call): K1 and K2 contiguous tensors, K3 contiguous rows or the
+    softmax output's class-major view, which its class-tile launch reads
+    in place (`ops.topk.class_major`). On the CPU the plain versions take
+    any layout, so the wrappers are watched here."""
     from demonet_tpu_torch.engine.evaluate import make_predict_step
     from demonet_tpu_torch.models import builders, detection
+    from demonet_tpu_torch.ops.topk import class_major
 
     seen = []
+
+    def taken(name, t):
+        return t.is_contiguous() or (name == "topk_sparse"
+                                     and class_major(t) is not None)
 
     def watch(name):
         fn = getattr(detection, name)
 
         def wrapper(*args, **kwargs):
             tensors = [a for a in args if isinstance(a, torch.Tensor)]
-            seen.append((name, [t.is_contiguous() for t in tensors]))
+            seen.append((name, [taken(name, t) for t in tensors]))
             return fn(*args, **kwargs)
 
         monkeypatch.setattr(detection, name, wrapper)

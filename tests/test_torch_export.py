@@ -8,7 +8,9 @@ the CPU its kernels' custom ops run their plain versions, so:
     (`make_predict_step`) in the reference and fused modes, float32 and
     bf16; the fused program's `torch.cond` is held on each branch (tier
     1,024, tier 2,048 and the reference fallback), read from the shape of
-    the NMS problem its K1 node ran on;
+    the NMS problem its K1 node ran on; the reference program and the
+    fallback branch hold the per-class top-k K3 and run it, once, on the
+    softmax output's class-major view, as the eager step does;
   * its raw heads are within the heads tolerance of
     tests/test_torch_model.py (max-abs 1e-4) of the JAX
     `export_detector(..., with_postprocess=False)` artifact's, on the
@@ -42,6 +44,7 @@ from demonet_tpu_torch.models.builders import (
     ssdlite320_mobilenet_v3_large as port_ssdlite,
 )
 from demonet_tpu_torch.ops import nms as port_nms
+from demonet_tpu_torch.ops import topk as port_topk
 from demonet_tpu_torch.utils.weights import load_jax_variables
 from tests.torch_parity import draw_variables, one_thread  # noqa: F401
 
@@ -178,6 +181,21 @@ def nms_problems(monkeypatch):
     return seen
 
 
+@pytest.fixture
+def topk_problems(monkeypatch):
+    """The (shape, contiguous) of each input the top-k op's CPU
+    implementation runs on."""
+    seen = []
+    plain = port_topk.topk_sparse_plain
+
+    def spy(scores, *args):
+        seen.append((tuple(scores.shape), scores.is_contiguous()))
+        return plain(scores, *args)
+
+    monkeypatch.setattr(port_topk, "topk_sparse_plain", spy)
+    return seen
+
+
 @pytest.mark.parametrize("mode,live,branch", [
     ("reference", None, None),
     ("fused", 2500, "fallback"),
@@ -185,8 +203,8 @@ def nms_problems(monkeypatch):
     ("fused", 600, "tier_1024"),
 ])
 def test_reloaded_artifact_bit_equal_to_eager(voc_detector, tmp_path,
-                                              nms_problems, mode, live,
-                                              branch):
+                                              nms_problems, topk_problems,
+                                              mode, live, branch):
     det, x, fg_sorted = voc_detector
     thr = _threshold(fg_sorted, live)
     if thr is not None:
@@ -197,14 +215,23 @@ def test_reloaded_artifact_bit_equal_to_eager(voc_detector, tmp_path,
     want = make_predict_step(det, impl=mode)(det.model, x)
     assert dict(counts) == ({branch: 1} if branch else {})
     assert want["valid"].any()
-    eager_nms = list(nms_problems)
+    eager_nms, eager_topk = list(nms_problems), list(topk_problems)
 
     program = _reloaded(det, tmp_path, batch_size=2, postprocess_impl=mode)
     nms_problems.clear()
+    topk_problems.clear()
     with torch.no_grad():
         got = program(x)
-    # the program's branch: one NMS, over the same problems as eager's
+    # the program's branch: one NMS, over the same problems as eager's;
+    # the per-class top-k on the reference path alone, on the scores'
+    # (B, C-1, A) view, never copied
     assert nms_problems == eager_nms
+    assert topk_problems == eager_topk == (
+        [((2, _CLASSES - 1, len(det.anchors)), False)]
+        if branch in (None, "fallback") else [])
+    targets = [str(n.target) for m in program.modules()
+               if isinstance(m, torch.fx.GraphModule) for n in m.graph.nodes]
+    assert "demonet_tpu_torch.topk_sparse.default" in targets
     want_k = {None: 144, "fallback": 144, "tier_1024": 1024,
               "tier_2048": 2048}[branch]
     assert nms_problems[0][1] == want_k

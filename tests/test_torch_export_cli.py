@@ -142,7 +142,8 @@ def test_cli_aoti_writes_a_package_the_runner_runs(tmp_path):
                              threads=torch.get_num_threads())
     assert result.outputs == [((1, 3234, 5), "Float"),
                               ((1, 3234, 4), "Float")]
-    assert result.launches == {"nms_keep_batch": 0, "gather_rows_batch": 0}
+    assert result.launches == {"nms_keep_batch": 0, "gather_rows_batch": 0,
+                               "topk_sparse": 0}
     assert aoti.check_parity(package, str(tmp_path / "out"), x) == [0.0] * 2
 
 

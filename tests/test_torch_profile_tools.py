@@ -225,6 +225,8 @@ def test_trace_stats_on_a_card_trace(tmp_path, capsys):
      "gather_rows_batch"),
     ("topk_sparse_long_kernel(float const*, float*, int*, int, int)",
      "topk_sparse"),
+    ("void (anonymous namespace)::topk_sparse_classes_kernel(float const*, "
+     "float*, int*, int, int, long, long, int, float)", "topk_sparse"),
     ("fused_block_kernel(float const*, float const*)",
      "fused_inverted_residual"),
     ("void (anonymous namespace)::nms_sweep_kernel<2>(float const*, long "

@@ -9,10 +9,11 @@ order); every other slot must be the padding (-inf, 0). The CUDA kernel
 (csrc/topk.cu) is held to the plain version on every entry, padding
 included, on the card by chip_smoke.py.
 
-The reference core with topk_impl 'sparse', 'sparse_pallas' and 'approx'
-must be bit-equal to the JAX core with topk_impl 'exact' given the same
-scores and boxes. Parameter ids avoid the substring that tests/conftest.py
-marks slow.
+The reference core with every topk_impl name ('sparse', 'sparse_pallas',
+'approx', 'exact'), each of which reaches K3 on the scores' class-major
+view, must be bit-equal to the JAX core with topk_impl 'exact' given the
+same scores and boxes. Parameter ids avoid the substring that
+tests/conftest.py marks slow.
 """
 
 import dataclasses
@@ -176,8 +177,9 @@ def _core_case(regime):
     return scores, boxes, config
 
 
-@pytest.mark.parametrize("topk_impl", ["sparse", "sparse_pallas", "approx"],
-                         ids=["sparse", "sparse-kernel", "approx"])
+@pytest.mark.parametrize("topk_impl",
+                         ["sparse", "sparse_pallas", "approx", "exact"],
+                         ids=["sparse", "sparse-kernel", "approx", "exact"])
 @pytest.mark.parametrize("regime", ["dense", "sparse", "tied"])
 def test_core_topk_modes_bit_equal_to_jax_exact(regime, topk_impl):
     scores, boxes, config = _core_case(regime)
@@ -258,8 +260,10 @@ def _order_key(x):
 
 def _radix_select_topk(scores, k, thresh):
     """Test-only model of csrc/topk.cu's select branch: radix select of the
-    k-th largest key (four 8-bit digits), the tie cut in index order, and a
-    sort of only the k kept entries; padding (-inf, 0)."""
+    k-th largest key (8-bit digits from below the bits that the row's
+    largest and smallest live key share, fewer in the last pass; all ties
+    where those are equal), the tie cut in index order, and a sort of
+    only the k kept entries; padding (-inf, 0)."""
     p, a = scores.shape
     dead = 0x007FFFFF                      # the key of -inf
     out_sc = torch.full((p, k), float("-inf"))
@@ -271,17 +275,25 @@ def _radix_select_topk(scores, k, thresh):
         n_live = int(live.sum())
         t_key, ties = dead, 0
         if n_live > k:
-            prefix, pmask, ties = 0, 0, k
-            for shift in (24, 16, 8, 0):
+            hi, lo = int(key[live].max()), int(key[live].min())
+            top = (hi ^ lo).bit_length() - 1       # -1: every key equal
+            pmask = ~((2 << max(top, 0)) - 1) & 0xFFFFFFFF
+            prefix, ties = hi & pmask, k
+            low = top - 7
+            while top >= 0:
+                shift, bits = max(low, 0), min(8, 8 + low)
                 part = live & ((key & pmask) == prefix)
-                digit = (key[part] >> shift) & 0xFF
+                digit = (key[part] >> shift) & ((1 << bits) - 1)
                 hist = torch.bincount(digit, minlength=256)
                 at_or_above = hist.flip(0).cumsum(0).flip(0)
                 d = int(torch.nonzero(at_or_above >= ties).max())
                 ties -= int(at_or_above[d] - hist[d])
                 prefix |= d << shift
-                pmask |= 0xFF << shift
-            t_key = prefix
+                pmask |= ((1 << bits) - 1) << shift
+                if shift == 0:
+                    break
+                low -= 8
+            t_key = prefix if top >= 0 else hi
         gt = live & (key > t_key)
         eq = live & (key == t_key)
         eq_rank = torch.cumsum(eq.to(torch.int64), 0) - eq.to(torch.int64)
@@ -304,9 +316,15 @@ def test_plain_topk_dense_edge_cases_match_jax(case):
     _assert_contract(sc, idx, rows, _EDGE_K, _EDGE_THRESH, _EDGE_SLOTS)
 
 
-@pytest.mark.parametrize("case", _TOPK_EDGES + ("signed_zeros",))
+@pytest.mark.parametrize("case",
+                         _TOPK_EDGES + ("signed_zeros", "all_live_equal"))
 def test_radix_select_model_bit_equal_to_plain(case):
-    if case == "signed_zeros":
+    if case == "all_live_equal":
+        # one value above the threshold, k of it and more: no pass, ties
+        rows = np.full((6, _EDGE_A), 0.25, np.float32)
+        rows[:, ::3] = 1e-4
+        thresh = _EDGE_THRESH
+    elif case == "signed_zeros":
         # below a negative threshold: -0.0 and +0.0 tie, negatives live
         rng = np.random.default_rng(47)
         rows = rng.choice(np.asarray([-0.0, 0.0, -0.5, 0.25, -1e-30, -2.0],

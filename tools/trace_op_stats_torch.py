@@ -56,7 +56,8 @@ HAND_WRITTEN = {
                        "nms_sweep_kernel", "nms_sweep_long_kernel"),
     "gather_rows_batch": ("gather_rows_kernel",
                           "gather_rows_coord_major_kernel"),
-    "topk_sparse": ("topk_sparse_kernel", "topk_sparse_long_kernel"),
+    "topk_sparse": ("topk_sparse_kernel", "topk_sparse_long_kernel",
+                    "topk_sparse_classes_kernel"),
     "fused_inverted_residual": ("fused_block_kernel",),
 }
 ONE_PER_LAUNCH = {
