@@ -5,6 +5,9 @@ Everything particular to one of them sits in a file of its own:
 
   * `configs` entries name their file (`portbench/configs/<config>.json`):
     the model, its sizes and thresholds, where its weights come from;
+  * `portbench/reference/archs/<arch>.py`: the reference net of a
+    configuration's `arch` where `reference/nets.py` has no branch for it
+    (the file's contract is in that module's doc);
   * `portbench/traffic/<traffic>.json`: the entry (`serve` or `train`),
     batch, pool of frames, postprocess mode, optimizer settings;
   * `portbench/workloads/<cell>.json`: the compute dtype, the weights, the

@@ -10,6 +10,8 @@ benchmark so that later changes to the program cannot move it.
   * `nets`        -- the two detectors' forward passes (SSDLite320 +
                      MobileNetV3-Large, SSD300 + VGG16), with state_dict
                      names that the benchmark's weight maker fills;
+                     another architecture's net is a file of its own,
+                     `archs/<arch>.py`, built of `nets`' layers;
   * `boxes`       -- default boxes, the box coder, IoU;
   * `postprocess` -- softmax, decode, per-class top-k, greedy NMS, the
                      final top detections;

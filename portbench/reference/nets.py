@@ -12,6 +12,19 @@
     the atrous fc6 and fc7, the extras conv8 ... conv11, and plain 3x3
     heads. No BN.
 
+Any other `arch` is a file of its own, `reference/archs/<arch>.py` under
+`ARCHS`, loaded by path as a metric's reader is. It imports nothing but
+`torch` and this package (`from reference import nets`): nothing of the
+program, of the JAX package or of JAX. It defines
+
+    build(config, anchors_per_location, num_classes) -> Net
+
+called inside `build`'s device context, and makes its layers of `Conv`,
+`BN` and `Head` (with `Net` around them), so that `set_precision`, the
+benchmark's seeded weights (init rules by module name), `Net.grid_sizes`
+and the FLOP count work on it unchanged. So a configuration with a new
+architecture enters as new files only.
+
 Train-mode BN normalises by the batch's biased variance, E[x^2] - E[x]^2
 clamped at 0, and moves its running statistics by running = (1 - m) *
 running + m * batch with that same variance: the rule the configuration
@@ -31,6 +44,10 @@ rounding straight through.
 
 from __future__ import annotations
 
+import functools
+import importlib.util
+import os
+from types import ModuleType
 from typing import Dict, List, Sequence, Tuple
 
 import torch
@@ -38,6 +55,8 @@ import torch.nn.functional as F
 from torch import nn
 
 _FP8_MAX = 448.0
+# where `build` finds the file of an arch it has no branch for
+ARCHS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "archs")
 
 
 def make_divisible(v: float, divisor: int = 8) -> int:
@@ -363,8 +382,28 @@ def build(config: dict, device="cpu") -> Net:
             head = Head(lambda ci, co: Conv(ci, co, 3, padding=1),
                         ext.out_channels, a, c)
         else:
-            raise ValueError(f"no reference for arch {config['arch']!r}")
+            return arch_file(config["arch"]).build(config, a, c)
         return Net(ext, head)
+
+
+def arch_file(arch: str) -> ModuleType:
+    """`ARCHS/<arch>.py` as a module (see the module doc)."""
+    path = os.path.join(ARCHS, f"{arch}.py")
+    if not os.path.isfile(path):
+        raise ValueError(f"no reference for arch {arch!r}: no branch in "
+                         f"nets.build and no file {path}")
+    return _load(path)
+
+
+@functools.lru_cache(maxsize=None)
+def _load(path: str) -> ModuleType:
+    """The file at `path`, executed once a process."""
+    name = os.path.splitext(os.path.basename(path))[0]
+    spec = importlib.util.spec_from_file_location(
+        f"portbench_arch_{name.replace('.', '_').replace('-', '_')}", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
 
 def set_precision(net: nn.Module, precision: str) -> nn.Module:

@@ -1,6 +1,6 @@
-"""The reference against the program on the CPU, at small sizes, for both
-configurations: anchors, heads, the postprocess, the loss, and whole
-runs of every cell."""
+"""The reference against the program on the CPU, at small sizes, for every
+configuration of BENCHMARK.json: anchors, heads, the postprocess, the
+loss, and whole runs of every cell."""
 
 import time
 
@@ -14,8 +14,17 @@ from reference import loss as ref_loss
 from reference import postprocess as ref_post
 
 BENCH = manifest.load_benchmark()
-CONFIGS = {"ssdlite320_mobilenet_v3_large": "ssdlite320-serve-b128",
-           "ssd300_vgg16": "ssd300-serve-b128"}
+
+
+def _first_cell(config: str) -> str:
+    """The configuration's first serve cell, or its first cell."""
+    cells = [w["name"] for w in BENCH["workloads"] if w["config"] == config]
+    return next((c for c in cells if manifest.cell(BENCH, c)["traffic"]
+                 ["entry"] == "serve"), cells[0])
+
+
+# every configuration of BENCHMARK.json, through one of its cells
+CONFIGS = {c["name"]: _first_cell(c["name"]) for c in BENCH["configs"]}
 pytestmark = pytest.mark.usefixtures("few_threads")
 
 
